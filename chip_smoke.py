@@ -1,0 +1,476 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``hawkeye_tpu_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line; any failure raises and the script
+exits non-zero:
+
+1. env: torch, CUDA, nvcc and Triton versions, the card's name and power
+   limit.
+2. build: compile every kernel in ``hawkeye_tpu_torch/csrc`` (nvcc, sm_90a).
+3. kernels: each kernel against its plain PyTorch version at the slice's
+   shapes (BCNN VGG-16, 448x448, batch 8, bf16): pool values, codes and
+   ``dx`` bit-exact, plus a constructed-ties and an all-negative case; the
+   Gram within rtol 1e-4 / atol 1e-5 of the plain float32 product of the
+   same bf16 inputs (accumulation order only). Kernel, plain and library
+   times are device times (CUDA-graph replays between CUDA events); the
+   bound from the bytes and operations the function needs at this card's
+   published peaks.
+4. reference: a small BCNN (VGG-16, 64x64, float32, TF32 off) on the card,
+   through the kernels, against the same weights on the CPU: logits within
+   1e-4 and gradients within 1e-2 of the largest value.
+5. slice: BCNN VGG-16 at 448x448, 200 classes, synthetic data, through the
+   port's Trainer: stage 1 from ``configs/BCNN_S1.yaml`` (batch 8, a few
+   steps, one epoch, writes best_model), then stage 2 from
+   ``configs/BCNN_S2.yaml`` with ``model.load`` at that file and
+   ``fused_pooling: true``. Launch counts are set to 0 before each stage and
+   read after it; stage 2 must launch all three kernels.
+6. throughput: the stage-2 train step at batch 128, 448x448, bf16; 3 warm-up
+   and 10 timed steps, synchronised at each end.
+
+Then a ``kernels`` JSON line, the ``nvidia-smi`` name and power-limit line,
+and as the last line ``{"ok": true, "device": {...}}``. Without a CUDA
+device, or without the package beside it, it exits non-zero and prints no
+result.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# NVIDIA H100 SXM data sheet: HBM3 bytes/s, dense bf16 tensor-core FLOP/s,
+# float32 FLOP/s outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_BF16_S = 989e12
+PEAK_F32_S = 67e12
+
+B = 8
+POOL_SHAPES = [(B, 448, 448, 64), (B, 224, 224, 128), (B, 112, 112, 256),
+               (B, 56, 56, 512), (B, 28, 28, 512)]
+GRAM_SHAPE = (B, 196, 512)
+GRAM_RTOL, GRAM_ATOL = 1e-4, 1e-5
+
+
+def emit(phase, **fields):
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def nvidia_smi_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def cuda_ms(torch, fn, iters=20, warmup=3, replays=5):
+    """Mean device milliseconds per call of ``fn``: ``iters`` calls captured
+    in one CUDA graph, replayed ``replays`` times between two CUDA events.
+    The host's cost per call (argument checks, allocation, the launch) does
+    not count, so a small kernel reads its device time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (iters * replays)
+    del graph
+    return ms
+
+
+def bound(bytes_moved, ops, peak_ops):
+    t_bytes = bytes_moved / PEAK_BYTES_S * 1e3
+    t_ops = ops / peak_ops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ----------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ----------------------------------------------------------------------------
+def check_kernels(torch):
+    import torch.nn.functional as F
+
+    from hawkeye_tpu_torch.ops import fused_bilinear, pool
+    from hawkeye_tpu_torch.ops.bilinear import ssqrt
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    dev = "cuda"
+    bf16 = torch.bfloat16
+    rows = {"pool_fwd": dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0,
+                             ops=0.0, max_abs_err=0.0),
+            "pool_bwd": dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0,
+                             ops=0.0, max_abs_err=0.0)}
+    per_shape = []
+    for shape in POOL_SHAPES:
+        b, h, w, c = shape
+        n = b * h * w * c
+        x = torch.randn(shape, device=dev, generator=gen).to(bf16)
+        p, idx = pool.pool_fwd(x)
+        p_ref, idx_ref = pool.pool_fwd_plain(x)
+        torch.cuda.synchronize()
+        if not (torch.equal(p, p_ref) and torch.equal(idx, idx_ref)):
+            raise AssertionError(f"pool_fwd differs from plain at {shape}")
+        dp = torch.randn(p.shape, device=dev, generator=gen).to(bf16)
+        dx = pool.pool_bwd(dp, idx, p)
+        dx_ref = pool.pool_bwd_plain(dp, idx, p)
+        torch.cuda.synchronize()
+        if not torch.equal(dx, dx_ref):
+            raise AssertionError(f"pool_bwd differs from plain at {shape}")
+        for name, err in (("pool_fwd", (p.float() - p_ref.float()).abs().max()),
+                          ("pool_bwd", (dx.float() - dx_ref.float()).abs().max())):
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], float(err))
+
+        # the library's yardsticks (the port calls neither): relu then
+        # max_pool2d with indices on channels-last, and max_pool2d's backward
+        x_cl = x.permute(0, 3, 1, 2)
+        xr_cl = F.relu(x_cl)
+        _, lib_idx = F.max_pool2d(xr_cl, 2, 2, return_indices=True)
+        dp_cl = dp.permute(0, 3, 1, 2)
+        t = {
+            "fwd": cuda_ms(torch, lambda: pool.pool_fwd(x)),
+            "fwd_plain": cuda_ms(torch, lambda: pool.pool_fwd_plain(x)),
+            "fwd_lib": cuda_ms(torch, lambda: F.max_pool2d(
+                F.relu(x_cl), 2, 2, return_indices=True)),
+            "bwd": cuda_ms(torch, lambda: pool.pool_bwd(dp, idx, p)),
+            "bwd_plain": cuda_ms(torch, lambda: pool.pool_bwd_plain(dp, idx, p)),
+            "bwd_lib": cuda_ms(torch, lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+                dp_cl, xr_cl, [2, 2], [2, 2], [0, 0], [1, 1], False, lib_idx)),
+        }
+        # bytes each function must move: fwd reads x (2N) and writes p (N/2)
+        # and codes (N/4); bwd reads dp, p (N/2 each) and codes (N/4) and
+        # writes dx (2N). Operations: ~7 float32 compare/max per pooled value.
+        fb, bb = 2.75 * n, 3.25 * n
+        ops = 7 * n / 4
+        for name, key, byt in (("pool_fwd", "fwd", fb), ("pool_bwd", "bwd", bb)):
+            r = rows[name]
+            r["ms"] += t[key]
+            r["plain_ms"] += t[key + "_plain"]
+            r["library_ms"] += t[key + "_lib"]
+            r["bytes"] += byt
+            r["ops"] += ops
+        bf, _ = bound(fb, ops, PEAK_F32_S)
+        bbd, _ = bound(bb, ops, PEAK_F32_S)
+        per_shape.append({"shape": list(shape), "fwd_ms": t["fwd"],
+                          "fwd_bound_ms": bf, "bwd_ms": t["bwd"],
+                          "bwd_bound_ms": bbd, "fwd_plain_ms": t["fwd_plain"],
+                          "bwd_plain_ms": t["bwd_plain"],
+                          "fwd_library_ms": t["fwd_lib"],
+                          "bwd_library_ms": t["bwd_lib"]})
+        del x, p, idx, p_ref, idx_ref, dp, dx, dx_ref, x_cl, xr_cl, lib_idx, dp_cl
+
+    # constructed ties (coarse grid) and all-negative windows
+    x = (torch.round(torch.randn((B, 56, 56, 512), device=dev, generator=gen)
+                     * 2) / 2).to(bf16)
+    x[:, :8] = -x[:, :8].abs() - 0.5
+    p, idx = pool.pool_fwd(x)
+    p_ref, idx_ref = pool.pool_fwd_plain(x)
+    dp = torch.randn(p.shape, device=dev, generator=gen).to(bf16)
+    ties_ok = (torch.equal(p, p_ref) and torch.equal(idx, idx_ref)
+               and torch.equal(pool.pool_bwd(dp, idx, p),
+                               pool.pool_bwd_plain(dp, idx, p)))
+    neg = -(torch.rand((2, 8, 8, 64), device=dev, generator=gen) + 0.1).to(bf16)
+    pn, idxn = pool.pool_fwd(neg)
+    dxn = pool.pool_bwd(torch.ones_like(pn), idxn, pn)
+    neg_ok = (float(pn.float().abs().sum()) == 0.0
+              and float(dxn.float().abs().sum()) == 0.0
+              and torch.equal(idxn, pool.pool_fwd_plain(neg)[1]))
+    if not (ties_ok and neg_ok):
+        raise AssertionError(f"pool edge cases: ties {ties_ok}, negative {neg_ok}")
+
+    # gram + signed sqrt: features after ReLU are non-negative
+    xg = torch.relu(torch.randn(GRAM_SHAPE, device=dev, generator=gen)).to(bf16)
+    y = fused_bilinear.gram_signed_sqrt_forward(xg)
+    y_ref = fused_bilinear.gram_signed_sqrt_plain(xg)
+    torch.cuda.synchronize()
+    err = (y - y_ref).abs()
+    if not bool((err <= GRAM_ATOL + GRAM_RTOL * y_ref.abs()).all()):
+        raise AssertionError(f"gram_signed_sqrt max err {float(err.max())}")
+    bg, hw, c = GRAM_SHAPE
+    xt = xg.transpose(1, 2)
+    gram_row = dict(
+        ms=cuda_ms(torch, lambda: fused_bilinear.gram_signed_sqrt_forward(xg)),
+        plain_ms=cuda_ms(torch, lambda: fused_bilinear.gram_signed_sqrt_plain(xg)),
+        # bf16 bmm (tensor cores) plus the epilogue, as PyTorch would write it
+        library_ms=cuda_ms(torch, lambda: ssqrt(torch.bmm(xt, xg).float() / hw)),
+        bytes=bg * hw * c * 2 + bg * c * c * 4, ops=2 * bg * hw * c * c,
+        max_abs_err=float(err.max()))
+    rows["gram_signed_sqrt"] = gram_row
+
+    out = {}
+    for name, r in rows.items():
+        peak = PEAK_BF16_S if name == "gram_signed_sqrt" else PEAK_F32_S
+        bms, by = bound(r["bytes"], r["ops"], peak)
+        out[name] = dict(ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=bms,
+                         bound_us=bms * 1e3, bound_by=by,
+                         library_ms=r["library_ms"],
+                         max_abs_err=r["max_abs_err"])
+    emit("kernels_vs_plain", batch=B, dtype="bfloat16", pool_shapes=per_shape,
+         pool_edge_cases_bit_exact=True, gram_rtol=GRAM_RTOL,
+         gram_atol=GRAM_ATOL, **out)
+    return out
+
+
+# ----------------------------------------------------------------------------
+# phase 4: small float32 reference, card against CPU
+# ----------------------------------------------------------------------------
+def check_reference(torch):
+    from hawkeye_tpu_torch.engine.trainer import set_tf32
+    from hawkeye_tpu_torch.models import init_parameters
+    from hawkeye_tpu_torch.models.methods.bcnn import BCNN
+
+    set_tf32(False)
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    x = torch.randn((2, 64, 64, 3), generator=gen)
+    y = torch.tensor([3, 7])
+    results = {}
+    for dev in ("cpu", "cuda"):
+        m = BCNN(num_classes=10, backbone_name="vgg16", fused_pooling=True,
+                 dtype=torch.float32)
+        g = torch.Generator()
+        g.manual_seed(2)
+        init_parameters(m, g)
+        m.to(dev)
+        logits = m(x.to(dev))["logits"]
+        loss = torch.nn.functional.cross_entropy(logits, y.to(dev))
+        loss.backward()
+        results[dev] = (logits.detach().cpu(),
+                        m.backbone.features["0"].weight.grad.cpu(),
+                        m.fc.weight.grad.cpu())
+    # logits to 1e-4 of their largest value; gradients to 1e-2: a ReLU or a
+    # window's argmax can flip on a near-tie between cuDNN's and the CPU's
+    # float32 sums, and the first conv's gradient gathers all such flips
+    errs = {}
+    for name, tol, (a, b) in zip(("logits", "conv0_grad", "fc_grad"),
+                                 (1e-4, 1e-2, 1e-2),
+                                 zip(results["cuda"], results["cpu"])):
+        errs[name] = float((a - b).abs().max()) / float(b.abs().max())
+        if errs[name] > tol:
+            raise AssertionError(f"card vs CPU {name}: relative err {errs[name]}")
+    emit("reference", model="BCNN vgg16 64x64 float32 fused, TF32 off",
+         rel_err_of_max=errs)
+
+
+# ----------------------------------------------------------------------------
+# phases 5 and 6: the slice through the Trainer, then throughput
+# ----------------------------------------------------------------------------
+def _recipe(name, run_dir, overrides):
+    import yaml
+
+    def merge(base, over):
+        for k, v in over.items():
+            if isinstance(v, dict) and isinstance(base.get(k), dict):
+                merge(base[k], v)
+            else:
+                base[k] = v
+
+    with open(os.path.join(ROOT, "configs", name)) as f:
+        recipe = yaml.safe_load(f)
+    merge(recipe, overrides)
+    for k in ("root_dir", "meta_dir"):
+        recipe["dataset"].pop(k, None)
+    path = os.path.join(run_dir, name)
+    with open(path, "w") as f:
+        yaml.safe_dump(recipe, f)
+    return path
+
+
+def run_slice(torch, run_dir):
+    from hawkeye_tpu_torch.config import setup_config
+    from hawkeye_tpu_torch.engine import Trainer
+    from hawkeye_tpu_torch.ops import LAUNCHES, reset_launches
+
+    class SmokeTrainer(Trainer):
+        def report(self, epoch, lr, train_metrics, val_metrics, images_per_sec):
+            self.last_report = dict(train_loss=train_metrics["loss"],
+                                    train_acc=train_metrics["acc"],
+                                    val_loss=val_metrics["loss"],
+                                    val_acc=val_metrics["acc"],
+                                    images_per_sec=images_per_sec)
+
+    n_train = 32  # 4 train steps; the Trainer's synthetic val split is a
+    n_val = n_train // 4  # quarter of it: one batch
+    common = {
+        "experiment": {"log_dir": run_dir},
+        "dataset": {"name": "synthetic", "length": n_train, "num_workers": 8,
+                    "num_classes": 200},
+        "model": {"num_classes": 200},
+        "train": {"epoch": 1},
+    }
+    s1_cfg = setup_config(argv=["--config", _recipe("BCNN_S1.yaml", run_dir, common)])
+    if int(s1_cfg.dataset.batch_size) != B or int(s1_cfg.model.stage) != 1:
+        raise AssertionError("configs/BCNN_S1.yaml is no longer batch 8, stage 1")
+    reset_launches()
+    s1 = SmokeTrainer(s1_cfg)
+    s1.train()
+    torch.cuda.synchronize()
+    s1_launches = dict(LAUNCHES)
+    s1_state = {k: v.detach().cpu().clone() for k, v in s1.model.state_dict().items()}
+    s1_report = s1.last_report
+    s1_best = os.path.join(s1.log_root, "best_model.msgpack")  # recipe's name
+    del s1
+    torch.cuda.empty_cache()
+
+    s2_over = dict(common, model={"num_classes": 200, "load": s1_best,
+                                  "fused_pooling": True})
+    s2_cfg = setup_config(argv=["--config", _recipe("BCNN_S2.yaml", run_dir, s2_over)])
+    if int(s2_cfg.model.stage) != 2 or not s2_cfg.train.val_first:
+        raise AssertionError("configs/BCNN_S2.yaml is no longer stage 2 with val_first")
+    reset_launches()
+    s2 = SmokeTrainer(s2_cfg)
+    loaded = s2.model.state_dict()
+    for k, v in s1_state.items():
+        if not torch.equal(loaded[k].cpu(), v):
+            raise AssertionError(f"stage 2 did not load stage 1's {k}")
+    t0 = time.time()
+    s2.train()
+    torch.cuda.synchronize()
+    s2_seconds = time.time() - t0
+    s2_launches = dict(LAUNCHES)
+
+    steps = n_train // B
+    forwards = steps + 2 * (-(-n_val // B))  # val_first + end-of-epoch val
+    want = {"pool_fwd": 5 * forwards, "pool_bwd": 5 * steps,
+            "gram_signed_sqrt": forwards}
+    if s2_launches != want:
+        raise AssertionError(f"stage 2 launches {s2_launches}, expected {want}")
+    if s1_launches["pool_fwd"] == 0 or s1_launches["pool_bwd"] != 0:
+        raise AssertionError(f"stage 1 launches {s1_launches}")
+    r2 = s2.last_report
+    for rep in (s1_report, r2):
+        for k in ("train_loss", "val_loss"):
+            if not math.isfinite(rep[k]):
+                raise AssertionError(f"non-finite {k}: {rep}")
+    emit("slice", model="BCNN vgg16 448x448 200 classes, synthetic",
+         batch=B, stage1=dict(s1_report, launches=s1_launches),
+         stage2=dict(r2, launches=s2_launches, train_steps=steps,
+                     seconds_with_val=s2_seconds),
+         stage2_loaded_stage1_weights=True)
+    return s2, s2_launches
+
+
+def run_throughput(torch, trainer, batch=128, warmup=3, timed=10):
+    from hawkeye_tpu_torch.ops import LAUNCHES, reset_launches
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    batches = [{"img": torch.randn((batch, 448, 448, 3), device="cuda",
+                                   generator=gen),
+                "label": torch.randint(0, 200, (batch,), device="cuda",
+                                       generator=gen)}
+               for _ in range(timed)]
+    lr = float(trainer.config.train.optimizer.lr)
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(warmup):
+        trainer.train_step_call(batches[i], lr)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for b in batches:
+        m = trainer.train_step_call(b, lr)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    loss = float(m["loss"])
+    if not math.isfinite(loss):
+        raise AssertionError(f"throughput step loss {loss}")
+    per_step = {k: v / timed for k, v in LAUNCHES.items()}
+    if per_step != {"pool_fwd": 5, "pool_bwd": 5, "gram_signed_sqrt": 1}:
+        raise AssertionError(f"launches per step {per_step}")
+    emit("throughput", bcnn_train_images_per_sec=batch * timed / dt,
+         batch=batch, image_size=448, dtype="bfloat16", warmup_steps=warmup,
+         timed_steps=timed, ms_per_step=dt / timed * 1e3, last_loss=loss,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         launches_per_step=per_step, device=torch.cuda.get_device_name(0),
+         nvidia_smi=nvidia_smi_line())
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from hawkeye_tpu_torch.ops import _build
+
+    smi = nvidia_smi_line()
+    nvcc = _build.nvcc_path()
+    nvcc_version = subprocess.run([nvcc, "--version"], capture_output=True,
+                                  text=True, check=True).stdout.strip().splitlines()[-1]
+    try:
+        import triton
+        triton_version = triton.__version__
+    except ImportError:
+        triton_version = None
+    emit("env", torch=torch.__version__, cuda=torch.version.cuda,
+         nvcc=nvcc_version, triton=triton_version, python=sys.version.split()[0],
+         device=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
+         nvidia_smi=smi)
+
+    t0 = time.time()
+    paths = _build.build()
+    regs = [ln.strip() for log in _build.BUILD_LOG.values()
+            for ln in log.splitlines() if "registers" in ln]
+    emit("build", seconds=time.time() - t0,
+         libraries=[os.path.relpath(p, ROOT) for p in paths.values()],
+         flags=" ".join(_build.NVCC_FLAGS), ptxas=regs)
+
+    kernels = check_kernels(torch)
+    check_reference(torch)
+
+    run_dir = os.path.join(ROOT, "_smoke_run")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    try:
+        trainer, launches = run_slice(torch, run_dir)
+        run_throughput(torch, trainer)
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+    sources = {"pool_fwd": ("hawkeye_tpu_torch/csrc/pool.cu",
+                            "hawkeye_tpu/ops/pallas_pool.py:110"),
+               "pool_bwd": ("hawkeye_tpu_torch/csrc/pool.cu",
+                            "hawkeye_tpu/ops/pallas_pool.py:131"),
+               "gram_signed_sqrt": ("hawkeye_tpu_torch/csrc/gram.cu",
+                                    "hawkeye_tpu/ops/pallas_bilinear.py:63")}
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches[name], "max_abs_err": kernels[name]["max_abs_err"],
+         "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"],
+         "bound_ms": kernels[name]["bound_ms"],
+         "bound_by": kernels[name]["bound_by"],
+         "library_ms": kernels[name]["library_ms"]}
+        for name, (src, rep) in sources.items()]}), flush=True)
+    print(nvidia_smi_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

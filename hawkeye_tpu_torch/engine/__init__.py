@@ -1,0 +1,10 @@
+from .optim import build_optimizer, build_scheduler, set_learning_rate
+from .trainer import Trainer, emergency_save
+
+__all__ = [
+    "Trainer",
+    "emergency_save",
+    "build_optimizer",
+    "build_scheduler",
+    "set_learning_rate",
+]

@@ -1,0 +1,14 @@
+from .logging_utils import TqdmHandler, get_logger
+from .meters import AverageMeter, PerformanceMeter, Timer, accuracy
+from .rng import resolve_device, set_random_seed
+
+__all__ = [
+    "AverageMeter",
+    "PerformanceMeter",
+    "Timer",
+    "accuracy",
+    "TqdmHandler",
+    "get_logger",
+    "resolve_device",
+    "set_random_seed",
+]

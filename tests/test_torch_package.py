@@ -1,0 +1,104 @@
+"""Package-level contracts of the port (hawkeye_tpu_torch): it imports
+nothing of JAX or of the JAX package, its entry points default to CUDA and
+refuse to carry on without it, and its own copies of the config and registry
+behave like the JAX package's."""
+
+import ast
+import os
+
+import pytest
+import torch
+
+from hawkeye_tpu.config import setup_config as jax_setup_config
+from hawkeye_tpu_torch import MODEL, Repository
+from hawkeye_tpu_torch.config import setup_config
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "hawkeye_tpu"}
+
+
+def _port_files():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "hawkeye_tpu_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    return files
+
+
+def _imported_roots(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    files = _port_files()
+    assert len(files) > 20 and all(os.path.exists(f) for f in files)
+    bad = {(os.path.relpath(f, ROOT), m) for f in files
+           for m in _imported_roots(f) if m in FORBIDDEN}
+    assert not bad, bad
+
+
+def test_trainer_defaults_to_cuda_and_raises_without_it(tmp_path, monkeypatch):
+    from hawkeye_tpu_torch.engine import Trainer
+    from hawkeye_tpu_torch.utils import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)  # the recipe's log_dir is relative
+    cfg = setup_config(argv=["--config", os.path.join(ROOT, "configs",
+                                                      "BCNN_S2.yaml")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(cfg)
+    assert not os.listdir(tmp_path)  # raised before making a log dir
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_train_entry_raises_without_cuda(tmp_path, monkeypatch):
+    from hawkeye_tpu_torch import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--config", os.path.join(ROOT, "configs", "BCNN_S1.yaml")])
+
+
+@pytest.mark.parametrize("name", ["BCNN_S1.yaml", "BCNN_S2.yaml"])
+def test_config_copy_reads_recipes_like_jax(name):
+    path = os.path.join(ROOT, "configs", name)
+    port = setup_config(argv=["--config", path])
+    ref = jax_setup_config(argv=["--config", path])
+    assert port.to_dict() == ref.to_dict()
+    assert str(port) == str(ref)
+    assert port.is_frozen()
+    with pytest.raises(AttributeError):
+        port.model.stage = 3
+
+
+def test_registry_copy():
+    import hawkeye_tpu_torch.models  # noqa: F401
+
+    assert "BCNN" in MODEL
+    repo = Repository("x")
+    repo.register(len, name="f")
+    with pytest.raises(AssertionError):
+        repo.register(len, name="f")
+    with pytest.raises(KeyError, match="not found"):
+        repo.get("g")
+
+
+def test_cuda_wrappers_refuse_other_devices():
+    from hawkeye_tpu_torch.ops import _build, fused_bilinear, pool
+
+    meta = torch.empty((2, 4, 4, 8), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        pool.pool_fwd(meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_bilinear.gram_signed_sqrt_forward(meta.reshape(2, 16, 8))
+    with pytest.raises(TypeError):
+        _build.dtype_code(torch.float16)
