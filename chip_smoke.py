@@ -8,15 +8,21 @@ exits non-zero:
 
 1. env: torch, CUDA, nvcc and Triton versions, the card's name and power
    limit.
-2. build: compile every kernel in ``hawkeye_tpu_torch/csrc`` (nvcc, sm_90a).
+2. build: compile every kernel in ``hawkeye_tpu_torch/csrc`` (nvcc, sm_90a)
+   and count each library's tensor-core (HGMMA) and TMA (UTMALDG, UTMASTG)
+   instructions with ``cuobjdump -sass``; the Gram library must have HGMMA.
 3. kernels: each kernel against its plain PyTorch version at the slice's
-   shapes (BCNN VGG-16, 448x448, batch 8, bf16): pool values, codes and
-   ``dx`` bit-exact, plus a constructed-ties and an all-negative case; the
-   Gram within rtol 1e-4 / atol 1e-5 of the plain float32 product of the
-   same bf16 inputs (accumulation order only). Kernel, plain and library
-   times are device times (CUDA-graph replays between CUDA events); the
-   bound from the bytes and operations the function needs at this card's
-   published peaks.
+   shapes (BCNN VGG-16, 448x448, bf16): pool values, codes and ``dx``
+   bit-exact at batch 8, plus a constructed-ties and an all-negative case;
+   the Gram at batch 8 and 128 within rtol 1e-4 / atol 1e-5 of the plain
+   float32 product of the same bf16 inputs (accumulation order, and the
+   kernel's hardware square root, relative error below 2^-22).
+   Kernel, plain and library times are device times (CUDA-graph replays
+   between CUDA events); the bound from the bytes and operations the
+   function needs at this card's published peaks. The Gram's library call
+   is one ``torch.bmm`` with float32 output plus the epilogue, the same
+   function; the bf16-output ``bmm`` (which rounds the Gram to bf16 before
+   the epilogue) is reported beside it.
 4. reference: a small BCNN (VGG-16, 64x64, float32, TF32 off) on the card,
    through the kernels, against the same weights on the CPU: logits within
    1e-4 and gradients within 1e-2 of the largest value.
@@ -29,7 +35,9 @@ exits non-zero:
 6. throughput: the stage-2 train step at batch 128, 448x448, bf16; 3 warm-up
    and 10 timed steps, synchronised at each end.
 
-Then a ``kernels`` JSON line, the ``nvidia-smi`` name and power-limit line,
+Then a ``kernels`` JSON line (pool kernels at batch 8; the Gram at batch
+128, where its 134 MB output cannot stay in the 50 MB L2 between replays),
+the ``nvidia-smi`` name and power-limit line,
 and as the last line ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or without the package beside it, it exits non-zero and prints no
 result.
@@ -56,7 +64,7 @@ PEAK_F32_S = 67e12
 B = 8
 POOL_SHAPES = [(B, 448, 448, 64), (B, 224, 224, 128), (B, 112, 112, 256),
                (B, 56, 56, 512), (B, 28, 28, 512)]
-GRAM_SHAPE = (B, 196, 512)
+GRAM_SHAPES = [(B, 196, 512), (128, 196, 512)]  # recipe batch, throughput batch
 GRAM_RTOL, GRAM_ATOL = 1e-4, 1e-5
 
 
@@ -98,6 +106,15 @@ def cuda_ms(torch, fn, iters=20, warmup=3, replays=5):
     ms = start.elapsed_time(end) / (iters * replays)
     del graph
     return ms
+
+
+def sass_counts(lib_path, nvcc):
+    """Tensor-core and TMA instructions in a built library's SASS."""
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    return {op: sum(ln.count(op) for ln in sass.splitlines())
+            for op in ("HGMMA", "UTMALDG", "UTMASTG")}
 
 
 def bound(bytes_moved, ops, peak_ops):
@@ -201,23 +218,37 @@ def check_kernels(torch):
         raise AssertionError(f"pool edge cases: ties {ties_ok}, negative {neg_ok}")
 
     # gram + signed sqrt: features after ReLU are non-negative
-    xg = torch.relu(torch.randn(GRAM_SHAPE, device=dev, generator=gen)).to(bf16)
-    y = fused_bilinear.gram_signed_sqrt_forward(xg)
-    y_ref = fused_bilinear.gram_signed_sqrt_plain(xg)
-    torch.cuda.synchronize()
-    err = (y - y_ref).abs()
-    if not bool((err <= GRAM_ATOL + GRAM_RTOL * y_ref.abs()).all()):
-        raise AssertionError(f"gram_signed_sqrt max err {float(err.max())}")
-    bg, hw, c = GRAM_SHAPE
-    xt = xg.transpose(1, 2)
-    gram_row = dict(
-        ms=cuda_ms(torch, lambda: fused_bilinear.gram_signed_sqrt_forward(xg)),
-        plain_ms=cuda_ms(torch, lambda: fused_bilinear.gram_signed_sqrt_plain(xg)),
-        # bf16 bmm (tensor cores) plus the epilogue, as PyTorch would write it
-        library_ms=cuda_ms(torch, lambda: ssqrt(torch.bmm(xt, xg).float() / hw)),
-        bytes=bg * hw * c * 2 + bg * c * c * 4, ops=2 * bg * hw * c * c,
-        max_abs_err=float(err.max()))
-    rows["gram_signed_sqrt"] = gram_row
+    gram_shapes = []
+    for shape in GRAM_SHAPES:
+        xg = torch.relu(torch.randn(shape, device=dev, generator=gen)).to(bf16)
+        y = fused_bilinear.gram_signed_sqrt_forward(xg)
+        y_ref = fused_bilinear.gram_signed_sqrt_plain(xg)
+        torch.cuda.synchronize()
+        err = (y - y_ref).abs()
+        if not bool((err <= GRAM_ATOL + GRAM_RTOL * y_ref.abs()).all()):
+            raise AssertionError(f"gram_signed_sqrt max err {float(err.max())} "
+                                 f"at {shape}")
+        bg, hw, c = shape
+        xt = xg.transpose(1, 2)
+        byt = bg * hw * c * 2 + bg * c * c * 4
+        r = dict(
+            ms=cuda_ms(torch, lambda: fused_bilinear.gram_signed_sqrt_forward(xg)),
+            plain_ms=cuda_ms(torch, lambda: fused_bilinear.gram_signed_sqrt_plain(xg)),
+            # the library's yardsticks (the port calls neither): one bmm on
+            # the bf16 tensor cores with float32 output, plus the epilogue;
+            # and the bf16-output bmm, which rounds the Gram to bf16 first
+            library_ms=cuda_ms(torch, lambda: ssqrt(
+                torch.bmm(xt, xg, out_dtype=torch.float32) / hw)),
+            library_bf16_out_ms=cuda_ms(
+                torch, lambda: ssqrt(torch.bmm(xt, xg).float() / hw)),
+            bytes=byt, ops=2 * bg * hw * c * c, max_abs_err=float(err.max()))
+        bms, by = bound(r["bytes"], r["ops"], PEAK_BF16_S)
+        gram_shapes.append(dict(shape=list(shape), bound_ms=bms, bound_by=by,
+                                gb_per_s=byt / r["ms"] / 1e6,
+                                share_of_bound=bms / r["ms"], **r))
+        del xg, y, y_ref, err, xt
+        torch.cuda.empty_cache()
+    rows["gram_signed_sqrt"] = dict(gram_shapes[-1])
 
     out = {}
     for name, r in rows.items():
@@ -229,7 +260,7 @@ def check_kernels(torch):
                          max_abs_err=r["max_abs_err"])
     emit("kernels_vs_plain", batch=B, dtype="bfloat16", pool_shapes=per_shape,
          pool_edge_cases_bit_exact=True, gram_rtol=GRAM_RTOL,
-         gram_atol=GRAM_ATOL, **out)
+         gram_atol=GRAM_ATOL, gram_shapes=gram_shapes, **out)
     return out
 
 
@@ -435,9 +466,13 @@ def main():
     paths = _build.build()
     regs = [ln.strip() for log in _build.BUILD_LOG.values()
             for ln in log.splitlines() if "registers" in ln]
-    emit("build", seconds=time.time() - t0,
+    build_seconds = time.time() - t0
+    sass = {src: sass_counts(p, nvcc) for src, p in paths.items()}
+    emit("build", seconds=build_seconds,
          libraries=[os.path.relpath(p, ROOT) for p in paths.values()],
-         flags=" ".join(_build.NVCC_FLAGS), ptxas=regs)
+         flags=" ".join(_build.NVCC_FLAGS), ptxas=regs, sass=sass)
+    if sass["gram.cu"]["HGMMA"] == 0:
+        raise AssertionError(f"the Gram library has no HGMMA instruction: {sass}")
 
     kernels = check_kernels(torch)
     check_reference(torch)

@@ -5,11 +5,20 @@ Counterpart of ``hawkeye_tpu/ops/pallas_bilinear.py`` (renamed: there is no
 Pallas here). ``gram_signed_sqrt(x)`` computes, per image,
 ``sign(g)*sqrt(|g|+eps)`` with ``g = X^T X / HW`` over X in [HW, C]:
 
-* forward: on a CUDA tensor, the hand-written kernel in ``csrc/gram.cu``,
-  which replaces the TPU kernel ``pallas_bilinear.gram_signed_sqrt``. The raw
-  Gram never reaches device memory. Device-memory bytes bound it on Hopper
-  (the f32 output store); see the source note in ``gram.cu``. On a CPU tensor
-  the plain version ``gram_signed_sqrt_plain`` beside it.
+* forward: on a CUDA tensor, the hand-written kernels in ``csrc/gram.cu``,
+  which replace the TPU kernel ``pallas_bilinear.gram_signed_sqrt``; the raw
+  Gram never reaches device memory. On Hopper the float32 output store
+  bounds it (84% of the bytes at the BCNN shape). For bfloat16, the main
+  path, a persistent kernel loads x by TMA into a ring of swizzled
+  shared-memory stages (a producer warp runs ahead across tiles), multiplies
+  on the tensor cores (``wgmma``, both operands MN-major, float32
+  accumulators), and writes each output tile by TMA stores that drain while
+  the next tile is computed. TMA needs ``C % 8 == 0``; otherwise this
+  raises. float32 input, which only the float32 card-vs-CPU reference uses,
+  keeps a plain FMA kernel: TF32 tensor cores would break that reference's
+  1e-4 tolerance. The Gram's symmetry is left out: it saves none of the
+  store. See the source note in ``gram.cu``. On a CPU tensor the plain
+  version ``gram_signed_sqrt_plain`` beside it.
 * backward: ``_gram_bwd``, the same two batched products as the JAX
   package's custom VJP (which also leaves them to the compiler's matmuls):
   ``dg = dy / (2 max(|y|, sqrt(eps)))``, ``dX = X (dg + dg^T) / HW``.
@@ -42,6 +51,11 @@ def gram_signed_sqrt_forward(x, eps=1e-5):
     _build.require_cuda("gram_signed_sqrt", x)
     code = _build.dtype_code(x.dtype)
     b, hw, c = x.shape
+    if x.dtype == torch.bfloat16 and (c % 8 or x.data_ptr() % 16):
+        raise ValueError(
+            "gram_signed_sqrt: the bfloat16 kernel loads x by TMA, whose row "
+            "pitch (C * 2 bytes) must be a multiple of 16 bytes and whose base "
+            f"must be 16-byte aligned; got C={c}, address {x.data_ptr():#x}")
     out = torch.empty((b, c, c), dtype=torch.float32, device=x.device)
     rc = _build.kernel("hk_gram_signed_sqrt")(
         code, x.data_ptr(), out.data_ptr(), b, hw, c, float(eps),

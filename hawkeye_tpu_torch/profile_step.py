@@ -29,8 +29,10 @@ from .engine import Trainer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+# kernel-name substring -> ported kernel (the Gram has a bf16 wgmma kernel
+# and a float32 FMA kernel, both named gram_signed_sqrt_*)
 _PORTED = {"pool_fwd_kernel": "pool_fwd", "pool_bwd_kernel": "pool_bwd",
-           "gram_signed_sqrt_kernel": "gram_signed_sqrt"}
+           "gram_signed_sqrt": "gram_signed_sqrt"}
 
 
 def _category(name: str) -> str:

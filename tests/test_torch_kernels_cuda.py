@@ -5,7 +5,8 @@ the file imports no JAX, so it runs where only PyTorch is installed:
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py
 
 Pool values, codes and gradients must be bit-exact; the Gram within
-rtol 1e-4 / atol 1e-5 of the plain float32 product (accumulation order)."""
+rtol 1e-4 / atol 1e-5 of the plain float32 product (accumulation order and
+the bf16 kernel's approximate square root)."""
 
 import pytest
 import torch
@@ -67,9 +68,19 @@ def test_pool_wrappers_reject_what_the_kernel_does_not_take(card):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(3, 50, 200), (8, 196, 512), (1, 4, 64)],
-                         ids=["ragged", "bcnn", "one_tile"])
+@pytest.mark.parametrize("shape", [(3, 50, 200), (8, 196, 512), (1, 4, 64),
+                                   (128, 196, 512), (2, 784, 512),
+                                   (2, 196, 2048)],
+                         ids=["ragged", "bcnn", "one_tile", "bcnn_b128",
+                              "map28", "resnet50_width"])
 def test_gram_kernel_close_to_plain(card, dtype, shape):
+    """Both kernels (bf16 wgmma, float32 FMA) against the plain float32
+    product of the same inputs: rtol 1e-4 / atol 1e-5, for accumulation
+    order (bf16 products are exact in float32) and, in the bf16 kernel's
+    epilogue, the multiply by 1/HW and the hardware square root (relative
+    error below 2^-22, far inside the tolerance). The shapes: the main
+    path at batch 8 and 128, ragged HW and C, one tile, the 28x28 map (HW
+    spans many ring stages) and the ResNet-50 width."""
     x = torch.relu(torch.randn(shape, device="cuda", generator=card)).to(dtype)
     _build.reset_launches()
     got = fused_bilinear.gram_signed_sqrt_forward(x)
@@ -77,6 +88,14 @@ def test_gram_kernel_close_to_plain(card, dtype, shape):
     assert got.dtype == torch.float32
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
     assert _build.LAUNCHES["gram_signed_sqrt"] == 1
+
+
+def test_gram_bf16_rejects_a_row_pitch_tma_cannot_take(card):
+    x = torch.rand((2, 9, 100), device="cuda", generator=card).to(torch.bfloat16)
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="row pitch"):
+        fused_bilinear.gram_signed_sqrt_forward(x)
+    assert _build.LAUNCHES["gram_signed_sqrt"] == 0
 
 
 def test_gram_autograd_on_card(card):
