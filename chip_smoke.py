@@ -34,6 +34,29 @@ exits non-zero:
    read after it; stage 2 must launch all three kernels.
 6. throughput: the stage-2 train step at batch 128, 448x448, bf16; 3 warm-up
    and 10 timed steps, synchronised at each end.
+7. reference_resnet: Baseline ResNet-18 and ResNet-50 (64x64, batch 4, one
+   seed, TF32 off), one train-mode forward and backward on the card and on
+   the CPU: logits within 1e-4, the first-conv and ``fc`` gradients within
+   1e-2 and ``bn1``'s running mean and variance within 1e-4 of the largest
+   value. In float32 for both; ResNet-50's gradients are held to 1e-2 in
+   float64 on both devices, since its float32 gradients are only good to a
+   few 1e-2 at this size (the phase prints the CPU's own float32 against
+   float64 beside the card's float32 against the CPU's).
+8. slice_resnet: Baseline ResNet-50 at 448x448 (``configs/Baseline.yaml``:
+   batch 24, Adam; synthetic data, 200 classes, ``dataset.pipeline: device``
+   with TA-wide, ``resize_size`` 512) through the port's Trainer, one epoch
+   of 4 steps, then the Tester on the saved best model and the same val
+   split: its top-1 must equal the Trainer's last val accuracy; finite
+   losses, running statistics that moved, and no launch of the three
+   kernels.
+9. throughput_resnet: ``resnet50_train_images_per_sec`` as ``bench.py``
+   defines it: Baseline ResNet-50, 448x448, batch 128, 200 classes, SGD (lr
+   0.01, momentum 0.9, weight decay 1e-4), bf16 compute, the device
+   pipeline's augmentation (crop with the flip, normalize, erase 0.1, no
+   TA-wide, bf16 out) on device-resident uint8 [128, 512, 512, 3] inputs,
+   one per step; 3 warm-up and 10 timed steps, synchronised at each end.
+   Then ``resnet50_eval_images_per_sec``: the eval forward at batch 256 on a
+   512->448 center crop normalised in bf16, as ``bench.py`` times it.
 
 Then a ``kernels`` JSON line (pool kernels at batch 8; the Gram at batch
 128, where its 134 MB output cannot stay in the 50 MB L2 between replays),
@@ -306,6 +329,61 @@ def check_reference(torch):
 
 
 # ----------------------------------------------------------------------------
+# phase 7: small ResNet reference, card against CPU
+# ----------------------------------------------------------------------------
+def check_reference_resnet(torch):
+    import torch.nn.functional as F
+
+    from hawkeye_tpu_torch.engine.trainer import set_tf32
+    from hawkeye_tpu_torch.models import init_parameters
+    from hawkeye_tpu_torch.models.methods.baseline import BaselineClassifier
+
+    set_tf32(False)
+    gen = torch.Generator()
+    gen.manual_seed(4)
+    x = torch.randn((4, 64, 64, 3), generator=gen)
+    y = torch.tensor([3, 7, 1, 0])
+    names = ("logits", "conv1_grad", "fc_grad", "bn1_running_mean",
+             "bn1_running_var")
+    tols = dict(zip(names, (1e-4, 1e-2, 1e-2, 1e-4, 1e-4)))
+
+    def step(name, dtype, dev):
+        m = BaselineClassifier(name, 10, dtype=dtype)
+        init_parameters(m, torch.Generator().manual_seed(5))
+        m.backbone.to(dtype)  # the float32 head reads the float32 pool
+        m.to(dev).train()
+        logits = m(x.to(dev, dtype))["logits"]
+        F.cross_entropy(logits, y.to(dev)).backward()
+        bb = m.backbone
+        return [t.detach().double().cpu() for t in (
+            logits, bb.conv1.weight.grad, m.fc.weight.grad, bb.bn1.running_mean,
+            bb.bn1.running_var)]
+
+    def rel(a, b):
+        return {n: float((u - v).abs().max() / v.abs().max())
+                for n, u, v in zip(names, a, b)}
+
+    f32, f64 = torch.float32, torch.float64
+    cases = {"resnet18_float32": ("resnet18", f32, names),
+             "resnet50_float32": ("resnet50", f32, ("logits", "fc_grad",
+                                                    "bn1_running_mean",
+                                                    "bn1_running_var")),
+             "resnet50_float64": ("resnet50", f64, names)}
+    errs, cpu_runs = {}, {}
+    for case, (name, dtype, checked) in cases.items():
+        cpu_runs[case] = step(name, dtype, "cpu")
+        errs[case] = rel(step(name, dtype, "cuda"), cpu_runs[case])
+        for n in checked:
+            if errs[case][n] > tols[n]:
+                raise AssertionError(f"card vs CPU {case} {n}: relative err "
+                                     f"{errs[case][n]}")
+    cpu_f32_vs_f64 = rel(cpu_runs["resnet50_float32"], cpu_runs["resnet50_float64"])
+    emit("reference_resnet", model="Baseline ResNet-18/50 64x64 batch 4, one "
+         "train-mode step, TF32 off", tolerances=tols, rel_err_of_max=errs,
+         resnet50_cpu_float32_vs_float64=cpu_f32_vs_f64)
+
+
+# ----------------------------------------------------------------------------
 # phases 5 and 6: the slice through the Trainer, then throughput
 # ----------------------------------------------------------------------------
 def _recipe(name, run_dir, overrides):
@@ -438,6 +516,149 @@ def run_throughput(torch, trainer, batch=128, warmup=3, timed=10):
          nvidia_smi=nvidia_smi_line())
 
 
+# ----------------------------------------------------------------------------
+# phases 8 and 9: Baseline ResNet-50 through the Trainer and the Tester, then
+# throughput
+# ----------------------------------------------------------------------------
+def run_slice_resnet(torch, run_dir, n_train=96):
+    from hawkeye_tpu_torch.config import setup_config
+    from hawkeye_tpu_torch.engine import Tester, Trainer
+    from hawkeye_tpu_torch.ops import LAUNCHES, reset_launches
+
+    class SmokeTrainer(Trainer):
+        def report(self, epoch, lr, train_metrics, val_metrics, images_per_sec):
+            self.last_report = dict(train_loss=train_metrics["loss"],
+                                    train_acc=train_metrics["acc"],
+                                    val_loss=val_metrics["loss"],
+                                    val_acc=val_metrics["acc"],
+                                    images_per_sec=images_per_sec)
+
+    n_val = n_train // 4  # the Trainer's synthetic val split
+    data = {"name": "synthetic", "length": n_train, "num_workers": 8,
+            "num_classes": 200, "pipeline": "device",
+            "transformer": {"image_size": 448, "resize_size": 512}}
+    cfg = setup_config(argv=["--config", _recipe("Baseline.yaml", run_dir, {
+        "experiment": {"log_dir": run_dir}, "dataset": data,
+        "model": {"num_classes": 200}, "train": {"epoch": 1, "val_first": False}})])
+    if (cfg.model.name != "ResNet50" or int(cfg.dataset.batch_size) != 24
+            or cfg.train.optimizer.name != "Adam"):
+        raise AssertionError("configs/Baseline.yaml is no longer ResNet50, "
+                             "batch 24, Adam")
+    reset_launches()
+    trainer = SmokeTrainer(cfg)
+    bn1 = trainer.model.backbone.bn1
+    before = (bn1.running_mean.clone(), bn1.running_var.clone())
+    t0 = time.time()
+    trainer.train()
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    report = trainer.last_report
+    moved = not (torch.equal(bn1.running_mean, before[0])
+                 or torch.equal(bn1.running_var, before[1]))
+    best = os.path.join(trainer.log_root, "best_model.msgpack")  # recipe's name
+    steps = trainer.step
+    # the trained model's logits on the first val batch, for the Tester's
+    val = trainer.device_prepare_eval(trainer.prepare_batch(
+        next(iter(trainer.dataloaders["val"])), train=False))
+    with torch.no_grad():
+        logits = trainer.model.eval()(val["img"])["logits"]
+    del trainer, bn1
+    torch.cuda.empty_cache()
+
+    test_cfg = setup_config(argv=["--config", _recipe("Baseline.yaml", run_dir, {
+        "experiment": {"log_dir": run_dir}, "dataset": dict(data, length=n_val),
+        "model": {"num_classes": 200, "load": best}})])
+    tester = Tester(test_cfg)
+    top1 = tester.test()
+    with torch.no_grad():
+        same_logits = torch.equal(tester.model(val["img"])["logits"], logits)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    del tester, val, logits
+    for k in ("train_loss", "val_loss"):
+        if not math.isfinite(report[k]):
+            raise AssertionError(f"non-finite {k}: {report}")
+    if not moved:
+        raise AssertionError("bn1's running statistics did not move")
+    if not same_logits:
+        raise AssertionError("the Tester's model gives other logits than the "
+                             "trained model on the same val batch")
+    if top1 != report["val_acc"]:
+        raise AssertionError(f"Tester top-1 {top1} != the Trainer's last val "
+                             f"accuracy {report['val_acc']}")
+    if any(launches.values()):
+        raise AssertionError(f"the ResNet path launched {launches}")
+    emit("slice_resnet", model="Baseline ResNet-50 448x448 200 classes, "
+         "synthetic, pipeline device with ta_wide", batch=24,
+         train_steps=steps, val_images=n_val, seconds_with_val=seconds,
+         running_stats_moved=moved, tester_top1=top1,
+         tester_logits_equal_trainer=same_logits, launches=launches,
+         **report)
+
+
+def run_throughput_resnet(torch, run_dir, batch=128, eval_batch=256, warmup=3,
+                          timed=10):
+    from hawkeye_tpu_torch.data.transforms_device import IMAGENET_MEAN, IMAGENET_STD
+    from hawkeye_tpu_torch.ops import LAUNCHES, reset_launches
+    from hawkeye_tpu_torch.profile_step import bench_batches, bench_trainer
+
+    trainer = bench_trainer("resnet50", run_dir, batch)
+    batches = bench_batches("resnet50", batch, timed, seed=3)
+    lr = float(trainer.config.train.optimizer.lr)
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(warmup):
+        trainer.train_step_call(batches[i], lr)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for b in batches:
+        m = trainer.train_step_call(b, lr)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    loss = float(m["loss"])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not math.isfinite(loss):
+        raise AssertionError(f"throughput step loss {loss}")
+    if any(launches.values()):
+        raise AssertionError(f"the ResNet step launched {launches}")
+    del batches, m
+
+    # eval: bench.py's center crop (512 -> 448 by slicing), bf16 normalise
+    model = trainer.model.eval()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    raw = torch.randint(0, 256, (eval_batch, 512, 512, 3), device="cuda",
+                        dtype=torch.uint8, generator=gen)
+    off = (512 - 448) // 2
+    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.bfloat16, device="cuda")
+    std = torch.tensor(IMAGENET_STD, dtype=torch.bfloat16, device="cuda")
+
+    def eval_step(acc):
+        x = raw[:, off:off + 448, off:off + 448].to(torch.bfloat16) / 255.0
+        return acc + model((x - mean) / std)["logits"].argmax(-1).sum()
+
+    acc = torch.zeros((), dtype=torch.int64, device="cuda")
+    with torch.no_grad():
+        for _ in range(warmup):
+            acc = eval_step(acc)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(timed):
+            acc = eval_step(acc)
+        torch.cuda.synchronize()
+        dt_eval = time.perf_counter() - t1
+    emit("throughput_resnet", resnet50_train_images_per_sec=batch * timed / dt,
+         resnet50_eval_images_per_sec=eval_batch * timed / dt_eval,
+         batch=batch, eval_batch=eval_batch, image_size=448, dtype="bfloat16",
+         warmup_steps=warmup, timed_steps=timed, ms_per_step=dt / timed * 1e3,
+         eval_ms_per_step=dt_eval / timed * 1e3, last_loss=loss,
+         peak_memory_gb=peak_gb, launches=launches,
+         device=torch.cuda.get_device_name(0), nvidia_smi=nvidia_smi_line())
+    del trainer, model, raw
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -483,6 +704,11 @@ def main():
     try:
         trainer, launches = run_slice(torch, run_dir)
         run_throughput(torch, trainer)
+        del trainer
+        torch.cuda.empty_cache()
+        check_reference_resnet(torch)
+        run_slice_resnet(torch, run_dir)
+        run_throughput_resnet(torch, run_dir)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
 

@@ -5,7 +5,11 @@ Reference: ``dataset/dataset.py:22-64`` — lines are ``"<label> <relpath>"``
 ``{'img', 'label'[, 'id']}``. Metadata lists for the 8 benchmark datasets live
 in ``metadata/`` (same format).
 
-Addition over the reference:
+Additions over the reference, as in the JAX package:
+- ``decode_size``: when set, the dataset performs only decode + fixed-size
+  host prep (resize-shorter + center crop with PIL) and returns uint8
+  arrays; the rest of the augmentation runs batched on the device
+  (``transforms_device.py``).
 - ``SyntheticDataset``: deterministic random images, so trainers/benchmarks
   run end-to-end without the (non-redistributable) image files.
 """
@@ -16,6 +20,8 @@ import os
 
 import numpy as np
 from PIL import Image
+
+from .transforms_host import center_crop, resize_shorter
 
 
 def parse_metadata(meta_path):
@@ -51,14 +57,19 @@ class FGDataset:
     Args:
       root: image root directory.
       meta_path: metadata list file.
-      transform: host transform (PIL → np array).
+      transform: host transform (PIL → np array). Used in 'host' pipeline mode.
+      decode_size: if not None, ignore ``transform`` and return uint8
+        [decode_size, decode_size, 3] (resize-shorter + center-crop) for the
+        device pipeline.
       return_id: include the index as 'id' (reference return_id flag).
     """
 
-    def __init__(self, root, meta_path, transform=None, return_id=False):
+    def __init__(self, root, meta_path, transform=None, decode_size=None,
+                 return_id=False):
         self.root = root
         self.labels, self.paths = parse_metadata(meta_path)
         self.transform = transform
+        self.decode_size = decode_size
         self.return_id = return_id
 
     @property
@@ -71,7 +82,11 @@ class FGDataset:
     def __getitem__(self, index):
         path = os.path.join(self.root, self.paths[index])
         img = load_rgb(path)
-        if self.transform is not None:
+        if self.decode_size is not None:
+            img = center_crop(resize_shorter(img, self.decode_size),
+                              self.decode_size)
+            arr = np.asarray(img, np.uint8)
+        elif self.transform is not None:
             arr = self.transform(img)
         else:
             arr = np.asarray(img, np.uint8)
@@ -85,11 +100,12 @@ class SyntheticDataset:
     """Deterministic fake data with the FGDataset item contract."""
 
     def __init__(self, length=256, num_classes=200, image_size=448,
-                 transform=None, return_id=False, seed=0):
+                 transform=None, decode_size=None, return_id=False, seed=0):
         self.length = length
         self._num_classes = num_classes
         self.image_size = image_size
         self.transform = transform
+        self.decode_size = decode_size
         self.return_id = return_id
         rng = np.random.RandomState(seed)
         self.labels = rng.randint(0, num_classes, size=length).astype(np.int64)
@@ -102,13 +118,14 @@ class SyntheticDataset:
         return self.length
 
     def __getitem__(self, index):
-        size = self.image_size
+        size = self.decode_size or self.image_size
         rng = np.random.RandomState(index * 9973 + 7)
         arr = rng.randint(0, 256, size=(size, size, 3), dtype=np.uint8)
-        if self.transform is not None:
-            arr = self.transform(Image.fromarray(arr))
-        else:
-            arr = arr.astype(np.float32) / 255.0
+        if self.decode_size is None:  # else uint8 stays raw for the device
+            if self.transform is not None:
+                arr = self.transform(Image.fromarray(arr))
+            else:
+                arr = arr.astype(np.float32) / 255.0
         data = {"img": arr, "label": int(self.labels[index])}
         if self.return_id:
             data["id"] = index

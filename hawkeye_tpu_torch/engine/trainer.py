@@ -25,8 +25,22 @@ and ignored: the device mesh and batch padding to a device multiple,
 ``train.steps_per_dispatch``, ``train.remat``, ``train.async_checkpoint``.
 Validation needs no padding: each batch's loss is its mean over its real
 samples and the epoch's loss the mean over batches, as the JAX trainer's
-weight-0 padding gives. Not ported yet: ``dataset.pipeline: device``,
-multi-process data sharding, ``experiment.profile``, pretrained backbones.
+weight-0 padding gives.
+
+``dataset.pipeline: device`` (the JAX Trainer's device pipeline): the host
+only decodes to uint8 ``[R, R, 3]`` (``R = transformer.resize_size`` or
+``image_size * 8 // 7``), the batch goes to the card from pinned memory,
+and the train step augments it there first (``device_prepare_train``:
+random-resized crop with the flip, ``transformer.auto_augment`` (default
+``ta_wide``), normalisation, ``transformer.random_erase`` (default 0.1));
+evaluation center-crops and normalises (``device_prepare_eval``). The draws
+come from a ``torch.Generator`` on the device, seeded from
+``experiment.seed`` and the step, as JAX folds the step into its key, so a
+resumed run draws what the uninterrupted one would have; the streams differ
+from JAX's.
+
+Not ported yet: multi-process data sharding, ``experiment.profile``,
+pretrained backbones.
 """
 
 from __future__ import annotations
@@ -48,6 +62,7 @@ from ..data import (
     SyntheticDataset,
     build_transforms,
 )
+from ..data.transforms_device import make_eval_transform, make_train_augment
 from ..losses import build_criterion
 from ..models import init_parameters
 from ..registry import MODEL
@@ -138,9 +153,18 @@ class Trainer:
         self.logger.info(f"Device: {self.device} ({name})")
 
         self.pipeline = self.config.dataset.get("pipeline", "host")
-        if self.pipeline != "host":
-            raise NotImplementedError(
-                f"dataset.pipeline {self.pipeline!r} is not ported yet; use 'host'")
+        if self.pipeline == "device":
+            tcfg = self.config.dataset.transformer
+            size = int(tcfg.image_size)
+            self.device_augment = make_train_augment(
+                image_size=size,
+                erase_prob=float(tcfg.get("random_erase", 0.1)),
+                auto_augment=tcfg.get("auto_augment", "ta_wide"),
+            )
+            self.device_eval_prep = make_eval_transform(image_size=size)
+            self.aug_generator = torch.Generator(device=self.device)
+        elif self.pipeline != "host":
+            raise ValueError(f"unknown dataset.pipeline {self.pipeline!r}")
         self.transformers = self.get_transformers(self.config.dataset.transformer)
         self.collate_fn = self.get_collate_fn()
         self.datasets = self.get_dataset(self.config.dataset)
@@ -193,6 +217,8 @@ class Trainer:
             return None
 
     def get_transformers(self, transformer_config):
+        if self.pipeline == "device":
+            return {"train": None, "val": None}  # the host only decodes
         train_t, eval_t = build_transforms(transformer_config)
         return {"train": train_t, "val": eval_t}
 
@@ -203,6 +229,10 @@ class Trainer:
 
     def get_dataset(self, ds_config):
         name = ds_config.get("name", "cub")
+        decode = None
+        if self.pipeline == "device":
+            decode = int(ds_config.transformer.get(
+                "resize_size", ds_config.transformer.image_size * 8 // 7))
         if name == "synthetic":
             size = ds_config.transformer.image_size
             n = ds_config.get("length", 256)
@@ -210,9 +240,11 @@ class Trainer:
                                  self.config.model.get("num_classes", 200))
             return {
                 "train": SyntheticDataset(n, ncls, size,
-                                          transform=self.transformers["train"]),
+                                          transform=self.transformers["train"],
+                                          decode_size=decode),
                 "val": SyntheticDataset(max(n // 4, 1), ncls, size,
-                                        transform=self.transformers["val"]),
+                                        transform=self.transformers["val"],
+                                        decode_size=decode),
             }
         root = ds_config.root_dir
         meta = ds_config.meta_dir
@@ -220,9 +252,11 @@ class Trainer:
         suffix = f"_{suffix}" if suffix else ""
         return {
             "train": FGDataset(root, os.path.join(meta, f"train{suffix}.txt"),
-                               transform=self.transformers["train"]),
+                               transform=self.transformers["train"],
+                               decode_size=decode),
             "val": FGDataset(root, os.path.join(meta, f"val{suffix}.txt"),
-                             transform=self.transformers["val"]),
+                             transform=self.transformers["val"],
+                             decode_size=decode),
         }
 
     def get_sampler(self, split, ds_config):
@@ -299,19 +333,40 @@ class Trainer:
     def transform_grads(self, batch):
         """Gradient hook between backward and the update (grads in ``.grad``)."""
 
+    def device_prepare_train(self, generator, batch):
+        """Device-pipeline train-batch prep (override point): the standard
+        augmentation of ``img``. Methods with their own batch law override
+        this to rebuild the whole batch on the device."""
+        batch = dict(batch)
+        batch["img"] = self.device_augment(generator, batch["img"])
+        return batch
+
+    def device_prepare_eval(self, batch):
+        """Device-pipeline eval-batch prep (override point)."""
+        batch = dict(batch)
+        batch["img"] = self.device_eval_prep(batch["img"])
+        return batch
+
     def prepare_batch(self, batch, train):
-        """Host numpy batch -> dict of tensors on the device."""
+        """Host numpy batch -> dict of tensors on the device (from pinned
+        memory on CUDA, so the copy does not hold up the host)."""
         out = {}
         for k, v in batch.items():
             if isinstance(v, np.ndarray) and v.dtype.kind in "fiub":
-                out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(
-                    self.device, non_blocking=True)
+                t = torch.from_numpy(np.ascontiguousarray(v))
+                if self.device.type == "cuda":
+                    t = t.pin_memory()
+                out[k] = t.to(self.device, non_blocking=True)
             else:
                 out[k] = v
         return out
 
     def train_step_call(self, batch, lr):
         """One optimizer step on a prepared batch; returns device metrics."""
+        if self.pipeline == "device":
+            # one stream of draws per step, as JAX folds the step into its key
+            self.aug_generator.manual_seed(self.seed * 2**32 + self.step)
+            batch = self.device_prepare_train(self.aug_generator, batch)
         self.model.train()
         set_learning_rate(self.optimizer, lr)
         self.optimizer.zero_grad(set_to_none=False)
@@ -329,6 +384,8 @@ class Trainer:
 
     @torch.no_grad()
     def eval_step_call(self, batch):
+        if self.pipeline == "device":
+            batch = self.device_prepare_eval(batch)
         self.model.eval()
         loss, outputs = self.forward_eval(batch)
         return {"loss": loss, **self.compute_metrics(outputs, batch)}

@@ -1,1 +1,1 @@
-from . import vgg  # noqa: F401  (BACKBONE registrations)
+from . import resnet, vgg  # noqa: F401  (BACKBONE registrations)

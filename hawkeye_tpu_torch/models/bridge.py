@@ -2,25 +2,32 @@
 
 ``load_jax_variables(module, variables)`` takes the JAX variables tree as
 nested dicts of numpy arrays (``jax.device_get`` of the flax tree) and fills
-the module's parameters; ``export_jax_variables(module)`` is the inverse, so
-tests can compare parameters after an update.
+the module's parameters from ``params`` and its BatchNorm buffers from
+``batch_stats``; ``export_jax_variables(module)`` is the inverse, so tests
+can compare parameters and statistics after an update.
 
-Name map: a flax path ``a/b/convN/kernel`` is the parameter
-``a.b.features.N.weight`` (``convN`` carries the torchvision index, for
-``nn.Conv`` and the ``_Conv3x3Params`` twin alike); every other segment is
-kept, ``kernel`` becomes ``weight``. Layouts: conv kernel HWIO <-> weight
-OIHW, dense kernel [in, out] <-> weight [out, in]; biases as they are.
+Name map, built from the module itself: a module path keeps its segments,
+except that inside a VGG trunk ``features.N`` is flax's ``convN`` (the
+torchvision index, for ``nn.Conv`` and the ``_Conv3x3Params`` twin alike);
+ResNet's ``conv1``/``layer1_0``/... are flax's names as they are. Leaves:
+a conv or dense ``weight`` is ``kernel``; a BatchNorm ``weight`` is
+``scale``, its ``running_mean``/``running_var`` are
+``batch_stats/.../{mean,var}``; ``bias`` stays. Layouts: conv kernel HWIO
+<-> weight OIHW, dense kernel [in, out] <-> weight [out, in]; the rest as
+they are.
 """
 
 from __future__ import annotations
 
-import re
-
 import numpy as np
 import torch
 
-_CONV = re.compile(r"conv(\d+)")
-_FEATURES = re.compile(r"features\.(\d+)")
+from .backbones.norm import BatchNorm
+from .backbones.vgg import VGG
+
+_BN_LEAVES = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+              "running_mean": ("batch_stats", "mean"),
+              "running_var": ("batch_stats", "var")}
 
 
 def _flatten(tree, prefix=()):
@@ -31,20 +38,33 @@ def _flatten(tree, prefix=()):
             yield prefix + (str(k),), v
 
 
-def torch_name(jax_path) -> str:
-    *mods, leaf = jax_path
-    segs = []
-    for s in mods:
-        m = _CONV.fullmatch(s)
-        segs.append(f"features.{m.group(1)}" if m else s)
-    segs.append({"kernel": "weight"}.get(leaf, leaf))
-    return ".".join(segs)
-
-
-def jax_path(name: str) -> tuple:
-    name = _FEATURES.sub(lambda m: f"conv{m.group(1)}", name)
+def _flax_key(module, name):
+    """(collection, flax path) of the parameter or buffer ``name``."""
     *mods, leaf = name.split(".")
-    return tuple(mods) + ({"weight": "kernel"}.get(leaf, leaf),)
+    path, m, i = [], module, 0
+    while i < len(mods):
+        if isinstance(m, VGG) and mods[i] == "features":
+            path.append(f"conv{mods[i + 1]}")
+            m = m.features[mods[i + 1]]
+            i += 2
+        else:
+            path.append(mods[i])
+            m = getattr(m, mods[i])
+            i += 1
+    if isinstance(m, BatchNorm):
+        collection, leaf = _BN_LEAVES[leaf]
+    else:
+        collection, leaf = "params", {"weight": "kernel"}.get(leaf, leaf)
+    return collection, tuple(path) + (leaf,)
+
+
+def _name_map(module):
+    """{(collection, flax path): (torch name, tensor)} over the parameters and
+    the buffers (``num_batches_tracked`` has no flax counterpart)."""
+    tensors = dict(module.named_parameters())
+    tensors.update((n, b) for n, b in module.named_buffers()
+                   if not n.endswith("num_batches_tracked"))
+    return {_flax_key(module, n): (n, t) for n, t in tensors.items()}
 
 
 def _to_torch_layout(arr: np.ndarray, leaf: str) -> np.ndarray:
@@ -56,48 +76,51 @@ def _to_torch_layout(arr: np.ndarray, leaf: str) -> np.ndarray:
 
 
 def _to_jax_layout(arr: np.ndarray, leaf: str) -> np.ndarray:
-    if leaf == "weight" and arr.ndim == 4:
+    if leaf == "kernel" and arr.ndim == 4:
         return arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
-    if leaf == "weight" and arr.ndim == 2:
+    if leaf == "kernel" and arr.ndim == 2:
         return arr.T
     return arr
 
 
 @torch.no_grad()
 def load_jax_variables(module: torch.nn.Module, variables: dict):
-    """Copy ``variables['params']`` into ``module``. Every parameter must be
-    filled exactly once, with a matching shape, or this raises."""
-    params = dict(module.named_parameters())
+    """Copy ``variables['params']`` and ``variables['batch_stats']`` into
+    ``module``. Every parameter and buffer must be filled exactly once, with
+    a matching shape, or this raises."""
+    targets = _name_map(module)
     filled = set()
-    for path, arr in _flatten(variables["params"]):
-        name = torch_name(path)
-        if name not in params:
-            raise KeyError(f"no parameter {name!r} for flax path {'/'.join(path)}")
-        src = np.array(_to_torch_layout(np.asarray(arr), path[-1]), order="C",
-                       copy=True)
-        p = params[name]
-        if tuple(src.shape) != tuple(p.shape):
-            raise ValueError(f"{name}: shape {tuple(p.shape)} vs flax "
-                             f"{tuple(src.shape)}")
-        p.copy_(torch.from_numpy(src).to(p.dtype))
-        filled.add(name)
-    missing = sorted(set(params) - filled)
+    for collection in ("params", "batch_stats"):
+        for path, arr in _flatten(variables.get(collection, {})):
+            key = (collection, path)
+            if key not in targets:
+                raise KeyError(f"no parameter or buffer for flax "
+                               f"{collection}/{'/'.join(path)}")
+            name, t = targets[key]
+            src = np.array(_to_torch_layout(np.asarray(arr), path[-1]),
+                           order="C", copy=True)
+            if tuple(src.shape) != tuple(t.shape):
+                raise ValueError(f"{name}: shape {tuple(t.shape)} vs flax "
+                                 f"{tuple(src.shape)}")
+            t.copy_(torch.from_numpy(src).to(t.dtype))
+            filled.add(name)
+    missing = sorted(n for n, _ in targets.values() if n not in filled)
     if missing:
-        raise KeyError(f"parameters with no flax counterpart: {missing}")
+        raise KeyError(f"parameters or buffers with no flax counterpart: {missing}")
     return module
 
 
 def export_jax_variables(module: torch.nn.Module) -> dict:
-    """The module's parameters as a flax-layout ``{'params': {...}}`` tree of
-    float32 numpy arrays."""
-    tree: dict = {}
-    for name, p in module.named_parameters():
-        path = jax_path(name)
-        node = tree
+    """The module's parameters (and BatchNorm statistics) as a flax-layout
+    ``{'params': {...}[, 'batch_stats': {...}]}`` tree of float32 numpy
+    arrays."""
+    trees: dict = {}
+    for (collection, path), (_, t) in _name_map(module).items():
+        node = trees.setdefault(collection, {})
         for seg in path[:-1]:
             node = node.setdefault(seg, {})
-        arr = p.detach().float().cpu().numpy()
+        arr = t.detach().float().cpu().numpy()
         # a copy: the array must not alias the parameter's memory
-        node[path[-1]] = np.array(_to_jax_layout(arr, name.rsplit(".", 1)[-1]),
-                                  order="C", copy=True)
-    return {"params": tree}
+        node[path[-1]] = np.array(_to_jax_layout(arr, path[-1]), order="C",
+                                  copy=True)
+    return trees

@@ -2,7 +2,8 @@
 
 Matches the JAX package's flax defaults in distribution (not in bits):
 conv and dense kernels are LeCun-normal (variance 1/fan_in, normal truncated
-at two standard deviations), biases zero.
+at two standard deviations), biases zero; BatchNorm scale 1, bias 0,
+running mean 0 and running variance 1.
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ import math
 
 import torch
 from torch import nn
+
+from .backbones.norm import BatchNorm
 
 # std of a unit normal truncated to [-2, 2] (flax's variance_scaling constant)
 _TRUNC_STD = 0.87962566103423978
@@ -26,4 +29,9 @@ def init_parameters(module: nn.Module, generator: torch.Generator):
                                   generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
+        elif isinstance(m, BatchNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)
     return module

@@ -1,1 +1,1 @@
-from . import bcnn  # noqa: F401  (MODEL registrations)
+from . import baseline, bcnn  # noqa: F401  (MODEL registrations)

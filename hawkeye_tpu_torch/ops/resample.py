@@ -1,0 +1,131 @@
+"""Batched crop + resize and grid sampling.
+
+Counterpart of ``hawkeye_tpu/ops/resample.py``. The JAX package computes
+these with XLA (batched matrix products and a gather), outside any Pallas
+kernel, and so does the port:
+
+- ``crop_resize_bilinear``: separable bilinear interpolation as two batched
+  matrix products ``Wy @ img @ Wx^T`` (``torch.bmm``), so one call is
+  RandomResizedCrop, center crop or box crop for a whole batch, with an
+  optional per-image horizontal flip folded into the x-weights. The first
+  product contracts the rows, its result rounds to ``dtype``, the second
+  contracts the columns: JAX's order.
+- ``grid_sample_bilinear``: general bilinear grid sampling by a 4-tap gather
+  from a zero-padded copy, for the per-image affine warps of TA-wide.
+
+Coordinates follow ``align_corners=False`` (torchvision / ``F.interpolate``
+default) unless asked otherwise. Images are NHWC.
+
+Not ported yet: ``crop_resize_multibox`` (NTS-Net, APCNN) and
+``resize_nearest`` (CrossX).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..utils.tensors import device_constant
+
+
+def _bilinear_weights(starts, sizes, in_size: int, out_size: int, dtype,
+                      align_corners=False):
+    """Per-image 1-D bilinear interpolation matrices [B, out_size, in_size]:
+    ``W @ v`` resamples ``v`` from the window [start, start+size) to
+    ``out_size`` points, with samples clamped to the window (intersected
+    with the image) and rows renormalised where the clamp leaves mass < 1."""
+    starts = starts.float()[:, None]
+    sizes = sizes.float()[:, None]
+    j = torch.arange(out_size, dtype=torch.float32, device=starts.device)[None, :]
+    if align_corners:
+        scale = (sizes - 1.0) / float(max(out_size - 1, 1))
+        src = starts + j * scale
+    else:
+        scale = sizes / float(out_size)
+        src = starts + (j + 0.5) * scale - 0.5
+    lo = starts.clamp(0.0, float(in_size - 1))
+    hi = (starts + sizes - 1.0).clamp(0.0, float(in_size - 1))
+    src = torch.minimum(torch.maximum(src, lo), hi)
+    i0 = torch.floor(src)
+    frac = src - i0
+    i = torch.arange(in_size, dtype=torch.float32, device=starts.device)[None, None, :]
+    w0 = (1.0 - (i - i0[..., None]).abs()).clamp(0.0, 1.0) * (1.0 - frac[..., None])
+    w1 = (1.0 - (i - (i0[..., None] + 1.0)).abs()).clamp(0.0, 1.0) * frac[..., None]
+    w = w0 + w1
+    w = w / w.sum(-1, keepdim=True).clamp_min(1e-6)
+    return w.to(dtype)
+
+
+def crop_resize_bilinear(images, boxes, out_h: int, out_w: int, dtype=None,
+                         align_corners=False, flip_x_mask=None):
+    """Crop per-image boxes and resize to (out_h, out_w), fully batched.
+
+    Args:
+      images: [B, H, W, C] (float or uint8).
+      boxes: [B, 4] (y0, x0, h, w) in pixels of the source image.
+      flip_x_mask: optional [B] bool: flip that image horizontally, by
+        reversing its x-weight rows.
+
+    Returns [B, out_h, out_w, C] in ``dtype`` (the images' float dtype, or
+    float32 for integer images), contiguous NHWC.
+    """
+    b, h, w, c = images.shape
+    if dtype is None:
+        dtype = images.dtype if images.is_floating_point() else torch.float32
+    imgs = images.to(dtype)
+    wy = _bilinear_weights(boxes[:, 0], boxes[:, 2], h, out_h, dtype,
+                           align_corners)  # [B, oh, H]
+    wx = _bilinear_weights(boxes[:, 1], boxes[:, 3], w, out_w, dtype,
+                           align_corners)  # [B, ow, W]
+    if flip_x_mask is not None:
+        wx = torch.where(flip_x_mask[:, None, None], wx.flip(1), wx)
+    # rows first, computed transposed: [B, W*C, H] @ [B, H, oh] -> [B, W*C, oh]
+    # (both operands are transposed views; bmm reads them in place)
+    tmp = torch.bmm(imgs.reshape(b, h, w * c).transpose(1, 2), wy.transpose(1, 2))
+    # columns: [B, ow, W] @ [B, W, C*oh] -> [B, ow, C*oh]
+    out = torch.bmm(wx, tmp.view(b, w, c * out_h))
+    return out.view(b, out_w, c, out_h).permute(0, 3, 1, 2).contiguous()
+
+
+def resize_bilinear(images, out_h: int, out_w: int, dtype=None,
+                    align_corners=False):
+    """Plain full-image resize."""
+    b, h, w, _ = images.shape
+    boxes = device_constant((0.0, 0.0, float(h), float(w)), torch.float32,
+                            images.device).expand(b, 4)
+    return crop_resize_bilinear(images, boxes, out_h, out_w, dtype=dtype,
+                                align_corners=align_corners)
+
+
+def grid_sample_bilinear(images, grid):
+    """Bilinear grid sample with zero padding outside the image.
+
+    Args:
+      images: [B, H, W, C] float.
+      grid: [B, out_h, out_w, 2] sample coordinates in pixels, last dim (y, x).
+
+    A tap at row or column -1 or H/W reads the zero ring of a padded copy;
+    samples further out are masked to zero, as in the JAX gather.
+    """
+    b, h, w, c = images.shape
+    out_sp = grid.shape[1:-1]
+    y = grid[..., 0].reshape(b, -1)
+    x = grid[..., 1].reshape(b, -1)
+    y0 = torch.floor(y)
+    x0 = torch.floor(x)
+    wy1 = (y - y0).to(images.dtype)[..., None]
+    wx1 = (x - x0).to(images.dtype)[..., None]
+    xp = torch.nn.functional.pad(images, (0, 0, 1, 1, 1, 1)).reshape(
+        b, (h + 2) * (w + 2), c)
+    iy = (y0 + 1).clamp(0, h).long()
+    ix = (x0 + 1).clamp(0, w).long()
+
+    def tap(dy, dx):
+        flat = ((iy + dy) * (w + 2) + ix + dx)[..., None].expand(-1, -1, c)
+        return torch.gather(xp, 1, flat)
+
+    ok = ((y0 >= -1) & (y0 <= h - 1) & (x0 >= -1) & (x0 <= w - 1)).to(
+        images.dtype)[..., None]
+    top = tap(0, 0) * (1 - wx1) + tap(0, 1) * wx1
+    bot = tap(1, 0) * (1 - wx1) + tap(1, 1) * wx1
+    out = (top * (1 - wy1) + bot * wy1) * ok
+    return out.reshape(b, *out_sp, c)

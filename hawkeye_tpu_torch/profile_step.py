@@ -1,16 +1,27 @@
-"""Where the BCNN stage-2 train step spends its device time.
+"""Where a train step spends its device time.
 
-    python -m hawkeye_tpu_torch.profile_step [--batch 8,128] [--steps 5]
+    python -m hawkeye_tpu_torch.profile_step [--model bcnn|resnet50]
+                                             [--batch 8,128] [--steps 5]
 
-Builds the port's Trainer from ``configs/BCNN_S2.yaml`` (VGG-16, 448x448,
-200 classes, ``fused_pooling: true``, random weights, synthetic data) on the
-CUDA device and, for each batch size, times ``--steps`` train steps on
-device-resident random inputs with a sync at each end, then profiles the
-same number of steps with ``torch.profiler``. Prints one JSON line per batch
-size: wall ms per step, device kernel ms per step (sum of kernel times; one
-stream, so kernels do not overlap), the device idle share, kernel time by
-category and the top kernels, and the three ported kernels' device time per
-launch. Needs a CUDA device.
+``--model bcnn`` (the default) builds the port's Trainer from
+``configs/BCNN_S2.yaml`` (VGG-16, 448x448, 200 classes,
+``fused_pooling: true``) and feeds it device-resident random float images.
+``--model resnet50`` builds it from ``configs/Baseline.yaml`` (Baseline
+ResNet-50, 448x448, 200 classes) with ``bench.py``'s train step: SGD (lr
+0.01, momentum 0.9, weight decay 1e-4) and the device pipeline on
+device-resident uint8 ``[B, 512, 512, 3]`` images, augmented on the card by
+random-resized crop with the flip, normalisation and erasing (p 0.1), no
+TA-wide, bfloat16 out. Random weights, synthetic data, on the CUDA device.
+
+For each batch size it times ``--steps`` train steps with a sync at each
+end, then profiles the same number of steps with ``torch.profiler``. Prints
+one JSON line per batch size: wall ms per step, device kernel ms per step
+(sum of kernel times; one stream, so kernels do not overlap), the device
+idle share, kernel time by category and the top kernels, and the three
+ported kernels' device time per launch. A kernel's category comes from the
+host op that launched it where that says more than its name: everything
+the augmentation launches is ``augmentation``, everything under the
+optimizer's step is ``optimizer``. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -24,7 +35,9 @@ import time
 
 import torch
 
+from . import models  # noqa: F401  (registry side effects)
 from .config import ConfigNode, load_yaml_config
+from .data.transforms_device import make_train_augment
 from .engine import Trainer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -33,6 +46,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # and a float32 FMA kernel, both named gram_signed_sqrt_*)
 _PORTED = {"pool_fwd_kernel": "pool_fwd", "pool_bwd_kernel": "pool_bwd",
            "gram_signed_sqrt": "gram_signed_sqrt"}
+_AUGMENT = "hk::augment"  # the profiler range around the device augmentation
 
 
 def _category(name: str) -> str:
@@ -47,29 +61,79 @@ def _category(name: str) -> str:
         return "matmul"
     if "multi_tensor" in low or "foreach" in low:
         return "optimizer"
+    if "batch_norm" in low:
+        return "batch_norm"
     if "reduce" in low or "norm" in low:
         return "reduction"
     return "elementwise/other"
 
 
-def _trainer(run_dir, batch):
-    cfg = load_yaml_config(os.path.join(ROOT, "configs", "BCNN_S2.yaml")).to_dict()
-    cfg["experiment"].update(log_dir=run_dir, name=f"profile_b{batch}", debug=True)
-    cfg["dataset"] = {"name": "synthetic", "length": batch, "batch_size": batch,
-                      "num_workers": 0, "num_classes": 200,
-                      "transformer": cfg["dataset"]["transformer"]}
-    cfg["model"].update(load=None, fused_pooling=True, num_classes=200)
-    return Trainer(ConfigNode(cfg).freeze())
+def _launch_category(event) -> str | None:
+    """The category that the launching host op, or one above it, sets."""
+    while event is not None:
+        if event.name == _AUGMENT:
+            return "augmentation"
+        if event.name.startswith("Optimizer.step"):
+            return "optimizer"
+        event = event.cpu_parent
+    return None
 
 
-def profile_batch(batch, steps, run_dir):
-    trainer = _trainer(run_dir, batch)
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    batches = [{"img": torch.randn((batch, 448, 448, 3), device="cuda",
-                                   generator=gen),
-                "label": torch.randint(0, 200, (batch,), device="cuda",
-                                       generator=gen)} for _ in range(steps)]
+def bench_trainer(model, run_dir, batch, device=None):
+    """The port's Trainer for the benchmark step of ``model`` (on CUDA
+    unless ``device`` says otherwise)."""
+    if model == "bcnn":
+        cfg = load_yaml_config(os.path.join(ROOT, "configs", "BCNN_S2.yaml")).to_dict()
+        cfg["dataset"] = {"transformer": cfg["dataset"]["transformer"]}
+        cfg["model"].update(load=None, fused_pooling=True)
+    else:
+        cfg = load_yaml_config(os.path.join(ROOT, "configs", "Baseline.yaml")).to_dict()
+        cfg["dataset"] = {"pipeline": "device",
+                          "transformer": {"image_size": 448, "resize_size": 512,
+                                          "auto_augment": "none"}}
+        cfg["train"]["optimizer"] = {"name": "SGD", "lr": 0.01, "momentum": 0.9,
+                                     "weight_decay": 1e-4}
+    cfg["experiment"].update(log_dir=run_dir, name=f"profile_{model}_b{batch}",
+                             debug=True)
+    cfg["dataset"].update(name="synthetic", length=batch, batch_size=batch,
+                          num_workers=0, num_classes=200)
+    cfg["model"].update(num_classes=200)
+    trainer = Trainer(ConfigNode(cfg).freeze(), device=device)
+    if model == "resnet50":
+        # bench.py's augmentation: crop with the flip, normalize, erase 0.1,
+        # bfloat16 out (the trunk computes in bfloat16 anyway)
+        trainer.device_augment = make_train_augment(448, out_dtype=torch.bfloat16)
+    return trainer
+
+
+def bench_batches(model, batch, n, seed=0, device="cuda"):
+    """``n`` device-resident batches, each its own: float images for BCNN,
+    the device pipeline's uint8 decodes for ResNet-50."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    out = []
+    for _ in range(n):
+        if model == "bcnn":
+            img = torch.randn((batch, 448, 448, 3), device=device, generator=gen)
+        else:
+            img = torch.randint(0, 256, (batch, 512, 512, 3), device=device,
+                                dtype=torch.uint8, generator=gen)
+        out.append({"img": img, "label": torch.randint(
+            0, 200, (batch,), device=device, generator=gen)})
+    return out
+
+
+def profile_batch(model, batch, steps, run_dir):
+    trainer = bench_trainer(model, run_dir, batch)
+    if trainer.pipeline == "device":
+        augment = trainer.device_augment
+
+        def annotated(generator, images):
+            with torch.profiler.record_function(_AUGMENT):
+                return augment(generator, images)
+
+        trainer.device_augment = annotated
+    batches = bench_batches(model, batch, steps)
     lr = float(trainer.config.train.optimizer.lr)
     for b in batches[:3]:
         trainer.train_step_call(b, lr)
@@ -102,17 +166,31 @@ def profile_batch(batch, steps, run_dir):
         raise RuntimeError("the profiler recorded no device time")
     device_ms = sum(t for t, _ in kernels.values()) / steps / 1e3
     cats: dict = {}
+    for name, (t, _) in kernels.items():
+        c = _category(name)
+        cats[c] = cats.get(c, 0.0) + t / steps / 1e3
+    # then move what the augmentation and the optimizer launched to their
+    # own categories; a CUDA API event ("cudaLaunchKernel", ...) can carry a
+    # kernel that its calling op carries too, so only ops are read
+    for event in prof.events():
+        c = _launch_category(event)
+        if c is None or event.name.startswith("cu"):
+            continue
+        for k in event.kernels:
+            d = k.duration / steps / 1e3
+            cats[c] = cats.get(c, 0.0) + d
+            cats[_category(k.name)] -= d
     ported = {}
     for name, (t, n) in kernels.items():
         c = _category(name)
-        cats[c] = cats.get(c, 0.0) + t / steps / 1e3
         if c in _PORTED.values():
             ported[c] = {"us_per_launch": t / n, "launches_per_step": n / steps}
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     del trainer, batches
     torch.cuda.empty_cache()
     return {
-        "batch": batch, "steps": steps, "wall_ms_per_step": wall_ms,
+        "model": model, "batch": batch, "steps": steps,
+        "wall_ms_per_step": wall_ms,
         "images_per_sec": batch / wall_ms * 1e3,
         "device_kernel_ms_per_step": device_ms,
         "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
@@ -124,6 +202,7 @@ def profile_batch(batch, steps, run_dir):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--model", choices=("bcnn", "resnet50"), default="bcnn")
     parser.add_argument("--batch", default="8,128")
     parser.add_argument("--steps", type=int, default=5)
     args = parser.parse_args(argv)
@@ -133,7 +212,7 @@ def main(argv=None):
     shutil.rmtree(run_dir, ignore_errors=True)
     try:
         for b in (int(x) for x in args.batch.split(",")):
-            row = profile_batch(b, args.steps, run_dir)
+            row = profile_batch(args.model, b, args.steps, run_dir)
             row["device"] = torch.cuda.get_device_name(0)
             row["nvidia_smi"] = subprocess.run(
                 ["nvidia-smi", "--query-gpu=name,power.limit",

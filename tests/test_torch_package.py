@@ -68,7 +68,23 @@ def test_train_entry_raises_without_cuda(tmp_path, monkeypatch):
         train.main(["--config", os.path.join(ROOT, "configs", "BCNN_S1.yaml")])
 
 
-@pytest.mark.parametrize("name", ["BCNN_S1.yaml", "BCNN_S2.yaml"])
+def test_tester_and_test_entry_default_to_cuda_and_raise_without_it(
+        tmp_path, monkeypatch):
+    from hawkeye_tpu_torch import test
+    from hawkeye_tpu_torch.engine import Tester
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    argv = ["--config", os.path.join(ROOT, "configs", "test.yaml")]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Tester(setup_config(argv=argv))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        test.main(argv)
+    assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("name", ["BCNN_S1.yaml", "BCNN_S2.yaml", "Baseline.yaml",
+                                  "Baseline_synthetic.yaml", "test.yaml"])
 def test_config_copy_reads_recipes_like_jax(name):
     path = os.path.join(ROOT, "configs", name)
     port = setup_config(argv=["--config", path])
