@@ -58,8 +58,44 @@ exits non-zero:
    Then ``resnet50_eval_images_per_sec``: the eval forward at batch 256 on a
    512->448 center crop normalised in bf16, as ``bench.py`` times it.
 
+10. kernels_highorder_shapes: the three kernels at the shapes the new paths
+    give them: the pool kernels on VGG-16's maps at 224x224, batch 16,
+    bit-exact; the Gram at x [16, 49, 512] bf16 (Peer-Learning's fused
+    heads, K = 49) within the Gram tolerances; times and bounds as phase 3.
+11. reference_highorder: CBCNN (VGG-16, 64x64, d = 6000, float32) on the
+    card against the CPU: logits within 1e-4, gradients within 1e-2 of the
+    largest value. MPN on ResNet-50 (64x64, reduction 256), one train-mode
+    step: in float64 (the head is float32 either way) logits and
+    ``dr_bn``'s running variance within 1e-4, gradients within 1e-2; the
+    float32 logits within 1e-3 (the CPU's own float32 run is ~5e-4 from its
+    float64 one, printed beside, as is CBCNN's). The Peer-Learning kept masks identical and
+    both losses within 1e-6, at every agreement count of a batch of 16 and
+    every value of a T_k = 10 drop-rate ramp.
+12. slice_highorder: each recipe through its Example trainer
+    (``hawkeye_tpu_torch/examples``) at its recipe's shape, synthetic data,
+    200 classes, one epoch of 32 images (a quarter of that for val): CBCNN
+    S1 (224x224) -> S2 (448x448, batch 16, d = 6000) via ``model.load``,
+    then the Tester on the S2 best model (top-1 and logits equal to the
+    Trainer's); MPN (ResNet-50, 224x224, batch 8; its groups' LRs at 0.2x
+    and 1x); Peer-Learning S1 -> S2 (two BCNN VGG-16 peers, 224x224, batch
+    16; S2 with ``model.base_model.fused_pooling: true``; acc1/acc2 filled);
+    Pairwise Confusion (Baseline ResNet-50, 224x224, batch 24). Finite
+    losses; launch counts set to 0 before each stage, read after it and
+    held to exact values: pool kernels in CBCNN S1 (forward only) and S2,
+    all three in Peer-Learning S2 (the Gram twice per forward), none in MPN
+    and Pairwise Confusion.
+13. throughput_highorder: 3 warm-up and 10 timed train steps of each recipe
+    at its shape (CBCNN and Peer-Learning at stage 2, Peer-Learning with
+    drop rate 0.25) on device-resident float inputs, synchronised at each
+    end: ``cbcnn_train_images_per_sec``, ``mpn_train_images_per_sec``,
+    ``peer_learning_train_images_per_sec`` and
+    ``pair_confusion_train_images_per_sec`` with peak memory, one line each.
+    CBCNN's line also times its head's inverse transform both ways at the
+    recipe's shape: the irDFT matmuls the port runs and ``torch.fft.irfft``.
+
 Then a ``kernels`` JSON line (pool kernels at batch 8; the Gram at batch
-128, where its 134 MB output cannot stay in the 50 MB L2 between replays),
+128, where its 134 MB output cannot stay in the 50 MB L2 between replays;
+``launches`` summed over the BCNN stage 2 and the new recipes' stages),
 the ``nvidia-smi`` name and power-limit line,
 and as the last line ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or without the package beside it, it exits non-zero and prints no
@@ -85,6 +121,11 @@ PEAK_BF16_S = 989e12
 PEAK_F32_S = 67e12
 
 B = 8
+# Peer-Learning's and CBCNN stage 1's VGG-16 pool inputs at 224x224, batch
+# 16, and the Gram input of each fused BCNN peer there (7x7 post-pool5 map)
+PL_POOL_SHAPES = [(16, 224, 224, 64), (16, 112, 112, 128), (16, 56, 56, 256),
+                  (16, 28, 28, 512), (16, 14, 14, 512)]
+PL_GRAM_SHAPE = (16, 49, 512)
 POOL_SHAPES = [(B, 448, 448, 64), (B, 224, 224, 128), (B, 112, 112, 256),
                (B, 56, 56, 512), (B, 28, 28, 512)]
 GRAM_SHAPES = [(B, 196, 512), (128, 196, 512)]  # recipe batch, throughput batch
@@ -407,18 +448,24 @@ def _recipe(name, run_dir, overrides):
     return path
 
 
+class _Recorder:
+    """Keeps the Trainer's last epoch report (``report`` is its hook)."""
+
+    def report(self, epoch, lr, train_metrics, val_metrics, images_per_sec):
+        self.last_report = dict(train_loss=train_metrics["loss"],
+                                train_acc=train_metrics["acc"],
+                                val_loss=val_metrics["loss"],
+                                val_acc=val_metrics["acc"],
+                                images_per_sec=images_per_sec)
+
+
 def run_slice(torch, run_dir):
     from hawkeye_tpu_torch.config import setup_config
     from hawkeye_tpu_torch.engine import Trainer
     from hawkeye_tpu_torch.ops import LAUNCHES, reset_launches
 
-    class SmokeTrainer(Trainer):
-        def report(self, epoch, lr, train_metrics, val_metrics, images_per_sec):
-            self.last_report = dict(train_loss=train_metrics["loss"],
-                                    train_acc=train_metrics["acc"],
-                                    val_loss=val_metrics["loss"],
-                                    val_acc=val_metrics["acc"],
-                                    images_per_sec=images_per_sec)
+    class SmokeTrainer(_Recorder, Trainer):
+        pass
 
     n_train = 32  # 4 train steps; the Trainer's synthetic val split is a
     n_val = n_train // 4  # quarter of it: one batch
@@ -481,17 +528,21 @@ def run_slice(torch, run_dir):
     return s2, s2_launches
 
 
-def run_throughput(torch, trainer, batch=128, warmup=3, timed=10):
+def _train_rate(torch, trainer, size, batch, extra=None, warmup=3, timed=10):
+    """Train images per second of ``timed`` steps after ``warmup``, each on
+    its own device-resident batch, with the peak memory and the kernel
+    launches per step."""
     from hawkeye_tpu_torch.ops import LAUNCHES, reset_launches
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
-    batches = [{"img": torch.randn((batch, 448, 448, 3), device="cuda",
+    batches = [{"img": torch.randn((batch, size, size, 3), device="cuda",
                                    generator=gen),
                 "label": torch.randint(0, 200, (batch,), device="cuda",
-                                       generator=gen)}
+                                       generator=gen), **(extra or {})}
                for _ in range(timed)]
     lr = float(trainer.config.train.optimizer.lr)
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for i in range(warmup):
         trainer.train_step_call(batches[i], lr)
@@ -505,14 +556,20 @@ def run_throughput(torch, trainer, batch=128, warmup=3, timed=10):
     loss = float(m["loss"])
     if not math.isfinite(loss):
         raise AssertionError(f"throughput step loss {loss}")
-    per_step = {k: v / timed for k, v in LAUNCHES.items()}
-    if per_step != {"pool_fwd": 5, "pool_bwd": 5, "gram_signed_sqrt": 1}:
-        raise AssertionError(f"launches per step {per_step}")
-    emit("throughput", bcnn_train_images_per_sec=batch * timed / dt,
-         batch=batch, image_size=448, dtype="bfloat16", warmup_steps=warmup,
-         timed_steps=timed, ms_per_step=dt / timed * 1e3, last_loss=loss,
-         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-         launches_per_step=per_step, device=torch.cuda.get_device_name(0),
+    return dict(images_per_sec=batch * timed / dt, ms_per_step=dt / timed * 1e3,
+                batch=batch, image_size=size, warmup_steps=warmup,
+                timed_steps=timed, last_loss=loss,
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                launches_per_step={k: v / timed for k, v in LAUNCHES.items()})
+
+
+def run_throughput(torch, trainer, batch=128):
+    rate = _train_rate(torch, trainer, 448, batch)
+    if rate["launches_per_step"] != {"pool_fwd": 5, "pool_bwd": 5,
+                                     "gram_signed_sqrt": 1}:
+        raise AssertionError(f"launches per step {rate['launches_per_step']}")
+    emit("throughput", bcnn_train_images_per_sec=rate.pop("images_per_sec"),
+         dtype="bfloat16", **rate, device=torch.cuda.get_device_name(0),
          nvidia_smi=nvidia_smi_line())
 
 
@@ -525,13 +582,8 @@ def run_slice_resnet(torch, run_dir, n_train=96):
     from hawkeye_tpu_torch.engine import Tester, Trainer
     from hawkeye_tpu_torch.ops import LAUNCHES, reset_launches
 
-    class SmokeTrainer(Trainer):
-        def report(self, epoch, lr, train_metrics, val_metrics, images_per_sec):
-            self.last_report = dict(train_loss=train_metrics["loss"],
-                                    train_acc=train_metrics["acc"],
-                                    val_loss=val_metrics["loss"],
-                                    val_acc=val_metrics["acc"],
-                                    images_per_sec=images_per_sec)
+    class SmokeTrainer(_Recorder, Trainer):
+        pass
 
     n_val = n_train // 4  # the Trainer's synthetic val split
     data = {"name": "synthetic", "length": n_train, "num_workers": 8,
@@ -659,6 +711,379 @@ def run_throughput_resnet(torch, run_dir, batch=128, eval_batch=256, warmup=3,
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------------------
+# phases 10-13: the high-order and webly-supervised recipes
+# ----------------------------------------------------------------------------
+def check_kernels_highorder(torch):
+    """The three kernels at the shapes the new paths give them: the pool
+    kernels on VGG-16's maps at 224x224, batch 16 (Peer-Learning, CBCNN
+    stage 1), bit-exact; the Gram at x [16, 49, 512] bf16 (Peer-Learning's
+    fused BCNN heads; K = 49 is no multiple of the wgmma k16 step, so the
+    last step reads TMA's zero fill) within the Gram tolerances."""
+    from hawkeye_tpu_torch.ops import fused_bilinear, pool
+    from hawkeye_tpu_torch.ops.bilinear import ssqrt
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    bf16 = torch.bfloat16
+    pools = []
+    for shape in PL_POOL_SHAPES:
+        x = torch.randn(shape, device="cuda", generator=gen).to(bf16)
+        p, idx = pool.pool_fwd(x)
+        p_ref, idx_ref = pool.pool_fwd_plain(x)
+        dp = torch.randn(p.shape, device="cuda", generator=gen).to(bf16)
+        if not (torch.equal(p, p_ref) and torch.equal(idx, idx_ref) and torch.equal(
+                pool.pool_bwd(dp, idx, p), pool.pool_bwd_plain(dp, idx, p))):
+            raise AssertionError(f"pool kernels differ from plain at {shape}")
+        n = x.numel()
+        pools.append({"shape": list(shape),
+                      "fwd_ms": cuda_ms(torch, lambda: pool.pool_fwd(x)),
+                      "fwd_bound_ms": bound(2.75 * n, 7 * n / 4, PEAK_F32_S)[0],
+                      "bwd_ms": cuda_ms(torch, lambda: pool.pool_bwd(dp, idx, p)),
+                      "bwd_bound_ms": bound(3.25 * n, 7 * n / 4, PEAK_F32_S)[0]})
+        del x, p, idx, p_ref, idx_ref, dp
+    xg = torch.relu(torch.randn(PL_GRAM_SHAPE, device="cuda", generator=gen)).to(bf16)
+    y = fused_bilinear.gram_signed_sqrt_forward(xg)
+    y_ref = fused_bilinear.gram_signed_sqrt_plain(xg)
+    err = (y - y_ref).abs()
+    if not bool((err <= GRAM_ATOL + GRAM_RTOL * y_ref.abs()).all()):
+        raise AssertionError(f"gram_signed_sqrt max err {float(err.max())} at "
+                             f"{PL_GRAM_SHAPE}")
+    bg, hw, c = PL_GRAM_SHAPE
+    xt = xg.transpose(1, 2)
+    bms, by = bound(bg * hw * c * 2 + bg * c * c * 4, 2 * bg * hw * c * c, PEAK_BF16_S)
+    gram = dict(shape=list(PL_GRAM_SHAPE), max_abs_err=float(err.max()),
+                ms=cuda_ms(torch, lambda: fused_bilinear.gram_signed_sqrt_forward(xg)),
+                plain_ms=cuda_ms(torch, lambda: fused_bilinear.gram_signed_sqrt_plain(xg)),
+                library_ms=cuda_ms(torch, lambda: ssqrt(
+                    torch.bmm(xt, xg, out_dtype=torch.float32) / hw)),
+                bound_ms=bms, bound_by=by)
+    emit("kernels_highorder_shapes", dtype="bfloat16", pool_bit_exact=True,
+         pool_shapes=pools, gram_rtol=GRAM_RTOL, gram_atol=GRAM_ATOL, gram=gram)
+
+
+def _peer_case(torch, n_agree, seed, b=16, nc=200):
+    """Two peers' logits that agree on exactly ``n_agree`` of ``b`` samples,
+    with tied rows (equal logits and labels)."""
+    g = torch.Generator().manual_seed(seed)
+    agree = torch.randperm(b, generator=g) < n_agree
+    l1 = torch.randn((b, nc), generator=g)
+    l2 = torch.randn((b, nc), generator=g)
+    labels = torch.randint(0, nc, (b,), generator=g)
+    pred1 = l1.argmax(-1)
+    l2[torch.arange(b), torch.where(agree, pred1, (pred1 + 1) % nc)] += 8.0
+    for i in range(0, b - 1, 3):
+        if agree[i] == agree[i + 1]:
+            l1[i + 1], l2[i + 1], labels[i + 1] = l1[i], l2[i], labels[i]
+    return l1, l2, labels
+
+
+def check_reference_highorder(torch):
+    """CBCNN and MPN on the card against the CPU, TF32 off, and both method
+    losses on constructed batches."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from hawkeye_tpu_torch.engine.trainer import set_tf32
+    from hawkeye_tpu_torch.losses import pair_confusion, peer_learning
+    from hawkeye_tpu_torch.models import init_parameters
+    from hawkeye_tpu_torch.models.methods.cbcnn import CBCNN
+    from hawkeye_tpu_torch.models.methods.mpn import MPN
+
+    set_tf32(False)
+    x = torch.randn((2, 64, 64, 3), generator=torch.Generator().manual_seed(7))
+    y = torch.tensor([3, 7])
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    # CBCNN, VGG-16, d = 6000, float32
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        m = CBCNN(num_classes=10, dtype=torch.float32)
+        init_parameters(m, torch.Generator().manual_seed(8))
+        m.to(dev)
+        logits = m(x.to(dev))["logits"]
+        F.cross_entropy(logits, y.to(dev)).backward()
+        runs[dev] = [t.detach().cpu() for t in (
+            logits, m.backbone.features["0"].weight.grad, m.fc.weight.grad)]
+    # the CPU's own float32 against a float64 trunk (the head is float32 in
+    # both), beside the card's float32 against the CPU's
+    m = CBCNN(num_classes=10, dtype=torch.float64)
+    init_parameters(m, torch.Generator().manual_seed(8))
+    m.backbone.to(torch.float64)
+    logits = m(x.double())["logits"]
+    F.cross_entropy(logits, y).backward()
+    cpu64 = [t.detach().cpu() for t in (
+        logits, m.backbone.features["0"].weight.grad, m.fc.weight.grad)]
+    names = ("logits", "conv0_grad", "fc_grad")
+    tols = dict(zip(names, (1e-4, 1e-2, 1e-2)))
+    cbcnn = {n: rel(a, b) for n, a, b in zip(names, runs["cuda"], runs["cpu"])}
+    cbcnn_cpu32_vs_64 = {n: rel(a.double(), b.double())
+                         for n, a, b in zip(names, runs["cpu"], cpu64)}
+
+    # MPN on ResNet-50, reduction to 256, one train-mode step
+    def mpn(dtype, dev):
+        m = MPN(num_classes=10, dtype=dtype)
+        init_parameters(m, torch.Generator().manual_seed(9))
+        m.backbone.to(dtype)  # the float32 head reads the float32 covariance
+        m.dr_bn.to(dtype)
+        m.to(dev).train()
+        logits = m(x.to(dev, dtype))["logits"]
+        F.cross_entropy(logits, y.to(dev)).backward()
+        return [t.detach().double().cpu() for t in (
+            logits, m.backbone.conv1.weight.grad, m.dr_conv.weight.grad,
+            m.fc.weight.grad, m.dr_bn.running_var)]
+
+    mnames = ("logits", "conv1_grad", "dr_conv_grad", "fc_grad", "dr_bn_running_var")
+    f32, f64 = torch.float32, torch.float64
+    cpu32, cpu64 = mpn(f32, "cpu"), mpn(f64, "cpu")
+    mpn64 = {n: rel(a, b) for n, a, b in zip(mnames, mpn(f64, "cuda"), cpu64)}
+    mpn32 = {n: rel(a, b) for n, a, b in zip(mnames, mpn(f32, "cuda"), cpu32)}
+    cpu32_vs_64 = {n: rel(a, b) for n, a, b in zip(mnames, cpu32, cpu64)}
+
+    # the losses: the peer masks identical and the values within 1e-6 at
+    # every agreement count and every value of a T_k = 10 ramp
+    ramp = np.linspace(0.0, 0.25, 10).astype(np.float32)
+    loss_err = 0.0
+    for n_agree in range(17):
+        l1, l2, labels = _peer_case(torch, n_agree, seed=n_agree)
+        for dr in ramp:
+            out = {}
+            for dev in ("cpu", "cuda"):
+                args = [t.to(dev) for t in (l1, l2, labels)]
+                k1, k2, _, _ = peer_learning.peer_keep_masks(*args, float(dr))
+                v = torch.stack(peer_learning.peer_learning_losses(*args, float(dr)))
+                out[dev] = (k1.cpu(), k2.cpu(), v.cpu())
+            if not (torch.equal(out["cpu"][0], out["cuda"][0])
+                    and torch.equal(out["cpu"][1], out["cuda"][1])):
+                raise AssertionError(f"peer masks differ at {n_agree} agreeing, "
+                                     f"drop rate {dr}")
+            loss_err = max(loss_err, rel(out["cuda"][2], out["cpu"][2]))
+        pc = [pair_confusion.PairwiseConfusionLoss({"lambda_a": 0.1})(
+            {"logits": l1[:15].to(dev)}, {"label": labels[:15].to(dev)}).cpu()
+            for dev in ("cpu", "cuda")]
+        loss_err = max(loss_err, rel(pc[1], pc[0]))
+
+    checks = [("cbcnn " + n, cbcnn[n], tols[n]) for n in names]
+    checks += [("mpn float64 " + n, mpn64[n], 1e-4 if n in ("logits", "dr_bn_running_var")
+                else 1e-2) for n in mnames]
+    # float32 logits: the CPU's own float32 run is ~2e-4 of the largest logit
+    # from its float64 run at this size (printed beside)
+    checks += [("mpn float32 logits", mpn32["logits"], 1e-3),
+               ("losses", loss_err, 1e-6)]
+    for name, err, tol in checks:
+        if err > tol:
+            raise AssertionError(f"card vs CPU {name}: relative err {err} > {tol}")
+    emit("reference_highorder", model="CBCNN vgg16 64x64 d=6000 float32; MPN "
+         "resnet50 64x64 reduction 256, one train-mode step; TF32 off",
+         cbcnn_rel_err_of_max=cbcnn,
+         cbcnn_cpu_float32_vs_float64_trunk=cbcnn_cpu32_vs_64,
+         mpn_float64_rel_err_of_max=mpn64,
+         mpn_float32_rel_err_of_max=mpn32,
+         mpn_cpu_float32_vs_float64=cpu32_vs_64, loss_rel_err=loss_err,
+         peer_masks_identical=True,
+         tolerances={n: t for n, _, t in checks})
+
+
+def _train_stage(torch, trainer_cls, config, run_dir, overrides, want=None,
+                 loads=None):
+    """One recipe stage through an Example trainer, launch counts set to 0
+    before and read after; ``want`` the exact counts it must give, ``loads``
+    the state dict that ``model.load`` must have put in the model."""
+    from hawkeye_tpu_torch.config import setup_config
+    from hawkeye_tpu_torch.ops import LAUNCHES, reset_launches
+
+    cfg = setup_config(argv=["--config", _recipe(config, run_dir, overrides)])
+    reset_launches()
+    trainer = type(trainer_cls.__name__, (_Recorder, trainer_cls), {})(cfg)
+    own = trainer.model.state_dict()
+    if loads is not None and (own.keys() != loads.keys() or not all(
+            torch.equal(own[k].cpu(), v) for k, v in loads.items())):
+        raise AssertionError(f"{config}: model.load did not load stage 1's weights")
+    t0 = time.time()
+    trainer.train()
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = dict(LAUNCHES)
+    rep = trainer.last_report
+    for k in ("train_loss", "val_loss"):
+        if not math.isfinite(rep[k]):
+            raise AssertionError(f"{config}: non-finite {k}: {rep}")
+    if want is not None and launches != want:
+        raise AssertionError(f"{config}: launches {launches}, expected {want}")
+    return trainer, dict(rep, launches=launches, train_steps=trainer.step,
+                         seconds_with_val=seconds)
+
+
+def _emit_rate(torch, recipe, rate, want, **fields):
+    if rate["launches_per_step"] != want:
+        raise AssertionError(f"{recipe}: launches per step "
+                             f"{rate['launches_per_step']}, expected {want}")
+    emit("throughput_highorder", recipe=recipe,
+         **{f"{recipe}_train_images_per_sec": rate.pop("images_per_sec")},
+         **rate, **fields, dtype="bfloat16 trunk, float32 head",
+         device=torch.cuda.get_device_name(0), nvidia_smi=nvidia_smi_line())
+
+
+def _inverse_transform_ms(torch, model, batch):
+    """The CBCNN head's inverse transform at the recipe's shape, both ways:
+    the irDFT matmuls the port runs (as the JAX package does) and
+    ``torch.fft.irfft``, on the same spectra; device times and their
+    difference relative to the largest value."""
+    from hawkeye_tpu_torch.ops.cbp import _irdft_apply
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    k, d = model.irdft_cos.shape[0], model.output_channel
+    sr, si = (torch.randn((batch, k), device="cuda", generator=gen) for _ in range(2))
+    irdft = (model.irdft_cos, model.irdft_sin)
+    a = _irdft_apply(sr, si, irdft)
+    b = torch.fft.irfft(torch.complex(sr, si), n=d, dim=-1)
+    return {"irdft_ms": cuda_ms(torch, lambda: _irdft_apply(sr, si, irdft)),
+            "irfft_ms": cuda_ms(torch, lambda: torch.fft.irfft(
+                torch.complex(sr, si), n=d, dim=-1)),
+            "irfft_vs_irdft_rel_err": float((a - b).abs().max() / b.abs().max())}
+
+
+def run_highorder(torch, run_dir, n_train=32):
+    """slice_highorder and throughput_highorder: CBCNN S1 -> S2 and the
+    Tester, MPN, Peer-Learning S1 -> S2 and Pairwise Confusion, each
+    through its Example trainer at its recipe's shape (synthetic data, 200
+    classes, one epoch of ``n_train`` images, a quarter of that for val),
+    each followed by its train rate. Returns the kernels' launches summed
+    over the stages."""
+    from hawkeye_tpu_torch.config import setup_config
+    from hawkeye_tpu_torch.engine import Tester
+    from hawkeye_tpu_torch.examples.CBCNN import CBCNNTrainer
+    from hawkeye_tpu_torch.examples.MPN import MPNTrainer
+    from hawkeye_tpu_torch.examples.PairConfusion import PairConfusionTrainer
+    from hawkeye_tpu_torch.examples.PeerLearning import PLTrainer
+
+    n_val = n_train // 4
+    common = {"experiment": {"log_dir": run_dir},
+              "dataset": {"name": "synthetic", "length": n_train,
+                          "num_workers": 8, "num_classes": 200},
+              "model": {"num_classes": 200}, "train": {"epoch": 1}}
+    total = {"pool_fwd": 0, "pool_bwd": 0, "gram_signed_sqrt": 0}
+
+    def counts(vgg_trunks, forwards, steps, grams=0):
+        return {"pool_fwd": 5 * vgg_trunks * forwards,
+                "pool_bwd": 5 * vgg_trunks * steps,
+                "gram_signed_sqrt": grams}
+
+    def per_step(vgg_trunks, grams):
+        return {"pool_fwd": 5.0 * vgg_trunks, "pool_bwd": 5.0 * vgg_trunks,
+                "gram_signed_sqrt": float(grams)}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    # CBCNN: stage 1 at its recipe's 224x224, stage 2 at 448x448, batch 16
+    b = 16
+    steps, val_batches = n_train // b, -(-n_val // b)
+    s1, r1 = _train_stage(torch, CBCNNTrainer, "CBCNN_S1.yaml", run_dir, common,
+                          counts(1, steps + val_batches, 0))
+    best1 = os.path.join(s1.log_root, "best_model.msgpack")  # the recipe's name
+    s1_state = {k: v.detach().cpu().clone() for k, v in s1.model.state_dict().items()}
+    del s1
+    s2_over = dict(common, model={"num_classes": 200, "load": best1})
+    s2, r2 = _train_stage(torch, CBCNNTrainer, "CBCNN_S2.yaml", run_dir, s2_over,
+                          counts(1, steps + 2 * val_batches, steps),
+                          loads=s1_state)
+    add(r1["launches"])
+    add(r2["launches"])
+    cfg2 = s2.config
+    if (cfg2.model.name != "CBCNN" or int(cfg2.dataset.batch_size) != b
+            or int(cfg2.dataset.transformer.image_size) != 448
+            or int(cfg2.model.output_channel) != 6000):
+        raise AssertionError("configs/CBCNN_S2.yaml is no longer CBCNN d=6000 "
+                             "at 448x448, batch 16")
+    best2 = os.path.join(s2.log_root, "best_model.msgpack")
+    val = s2.prepare_batch(next(iter(s2.dataloaders["val"])), train=False)
+    with torch.no_grad():
+        logits = s2.model.eval()(val["img"])["logits"]
+    tester = Tester(setup_config(argv=["--config", _recipe("CBCNN_S2.yaml", run_dir, {
+        "experiment": {"log_dir": run_dir},
+        "dataset": dict(common["dataset"], length=n_val),
+        "model": {"num_classes": 200, "load": best2}})]))
+    top1 = tester.test()
+    with torch.no_grad():
+        same_logits = torch.equal(tester.model(val["img"])["logits"], logits)
+    if not same_logits or top1 != r2["val_acc"]:
+        raise AssertionError(f"CBCNN Tester: logits equal {same_logits}, top-1 "
+                             f"{top1} vs the Trainer's {r2['val_acc']}")
+    del tester, val, logits
+    emit("slice_highorder", recipe="cbcnn", model="CBCNN vgg16 d=6000, 200 "
+         "classes, synthetic", batch=b, stage1=dict(r1, image_size=224),
+         stage2=dict(r2, image_size=448), tester_top1=top1,
+         tester_logits_equal_trainer=same_logits)
+    _emit_rate(torch, "cbcnn", _train_rate(torch, s2, 448, b), per_step(1, 0),
+               stage=2, **_inverse_transform_ms(torch, s2.model, b))
+    del s2
+    torch.cuda.empty_cache()
+
+    # MPN: ResNet-50, 224x224, batch 8, backbone at 0.2x the LR
+    mpn, rm = _train_stage(torch, MPNTrainer, "MPN.yaml", run_dir, common,
+                           counts(0, 0, 0))
+    groups = {g["label"]: g for g in mpn.optimizer.param_groups}
+    lr_ratio = groups["backbone"]["lr"] / groups["head"]["lr"]
+    n_backbone = len(list(mpn.model.backbone.parameters()))
+    if (abs(lr_ratio - 0.2) > 1e-12 or len(groups["backbone"]["params"]) != n_backbone
+            or groups["head"]["lr"] != mpn.scheduler.current_lr):
+        raise AssertionError(f"MPN groups: ratio {lr_ratio}, backbone params "
+                             f"{len(groups['backbone']['params'])} of {n_backbone}")
+    add(rm["launches"])
+    emit("slice_highorder", recipe="mpn", model="MPN resnet50 reduction 256, "
+         "200 classes, synthetic", batch=int(mpn.config.dataset.batch_size),
+         image_size=224, lr_backbone=groups["backbone"]["lr"],
+         lr_head=groups["head"]["lr"], lr_ratio=lr_ratio, **rm)
+    _emit_rate(torch, "mpn", _train_rate(torch, mpn, 224, 8), per_step(0, 0))
+    del mpn
+    torch.cuda.empty_cache()
+
+    # Peer-Learning: two BCNN VGG-16 peers, 224x224, batch 16
+    p1, rp1 = _train_stage(torch, PLTrainer, "PeerLearning_BCNN_S1.yaml", run_dir,
+                           common, counts(2, steps + val_batches, 0))
+    best_p1 = os.path.join(p1.log_root, "best_model.msgpack")
+    p1_state = {k: v.detach().cpu().clone() for k, v in p1.model.state_dict().items()}
+    del p1
+    p2_over = dict(common, model={"num_classes": 200, "load": best_p1,
+                                  "base_model": {"fused_pooling": True}})
+    forwards = steps + 2 * val_batches
+    p2, rp2 = _train_stage(torch, PLTrainer, "PeerLearning_BCNN_S2.yaml", run_dir,
+                           p2_over, counts(2, forwards, steps, grams=2 * forwards),
+                           loads=p1_state)
+    acc = {k: p2.performance_meters["train"][k].values for k in ("acc1", "acc2")}
+    if not all(acc.values()):
+        raise AssertionError(f"Peer-Learning meters not filled: {acc}")
+    add(rp1["launches"])
+    add(rp2["launches"])
+    emit("slice_highorder", recipe="peer_learning", model="PeerLearningNet, two "
+         "BCNN vgg16 peers, 200 classes, synthetic", batch=b, image_size=224,
+         stage1=rp1, stage2=dict(rp2, fused_pooling=True, acc1=acc["acc1"],
+                                 acc2=acc["acc2"]))
+    _emit_rate(torch, "peer_learning", _train_rate(
+        torch, p2, 224, b, extra={"drop_rate": 0.25}), per_step(2, 2), stage=2,
+        drop_rate=0.25, fused_pooling=True)
+    del p2
+    torch.cuda.empty_cache()
+
+    # Pairwise Confusion: Baseline ResNet-50, 224x224, batch 24
+    pc, rpc = _train_stage(torch, PairConfusionTrainer, "PC_resnet50.yaml", run_dir,
+                           common, counts(0, 0, 0))
+    add(rpc["launches"])
+    emit("slice_highorder", recipe="pair_confusion", model="Baseline ResNet-50 "
+         "with PairwiseConfusionLoss (lambda 0.1), 200 classes, synthetic",
+         batch=int(pc.config.dataset.batch_size), image_size=224, **rpc)
+    _emit_rate(torch, "pair_confusion", _train_rate(torch, pc, 224, 24),
+               per_step(0, 0))
+    del pc
+    torch.cuda.empty_cache()
+    return total
+
+
 def main():
     import torch
 
@@ -669,6 +1094,7 @@ def main():
     sys.path.insert(0, ROOT)
     from hawkeye_tpu_torch.ops import _build
 
+    t_start = time.time()
     smi = nvidia_smi_line()
     nvcc = _build.nvcc_path()
     nvcc_version = subprocess.run([nvcc, "--version"], capture_output=True,
@@ -709,9 +1135,14 @@ def main():
         check_reference_resnet(torch)
         run_slice_resnet(torch, run_dir)
         run_throughput_resnet(torch, run_dir)
+        check_kernels_highorder(torch)
+        check_reference_highorder(torch)
+        for k, v in run_highorder(torch, run_dir).items():
+            launches[k] += v
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
 
+    emit("total", seconds=time.time() - t_start)
     sources = {"pool_fwd": ("hawkeye_tpu_torch/csrc/pool.cu",
                             "hawkeye_tpu/ops/pallas_pool.py:110"),
                "pool_bwd": ("hawkeye_tpu_torch/csrc/pool.cu",

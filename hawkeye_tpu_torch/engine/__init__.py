@@ -1,4 +1,5 @@
-from .optim import build_optimizer, build_scheduler, set_learning_rate
+from .optim import (build_optimizer, build_scheduler, prefix_param_groups,
+                    set_learning_rate)
 from .tester import Tester
 from .trainer import Trainer, emergency_save
 
@@ -8,5 +9,6 @@ __all__ = [
     "emergency_save",
     "build_optimizer",
     "build_scheduler",
+    "prefix_param_groups",
     "set_learning_rate",
 ]

@@ -7,7 +7,9 @@ with constant LR ratios. Here that is ``torch.optim`` directly: SGD with
 coupled L2 (``weight_decay``) and momentum/nesterov is what the JAX package
 builds as ``add_decayed_weights`` + ``trace``; Adam is coupled L2, AdamW
 decoupled. A parameter group may carry an ``lr_mult``; ``set_learning_rate``
-writes ``lr * lr_mult`` into every group. The schedulers are host-side and
+writes ``lr * lr_mult`` into every group; ``prefix_param_groups`` builds
+such groups from name prefixes, as ``make_prefix_labeler`` labels the JAX
+parameters (``Examples/MPN.py``). The schedulers are host-side and
 copied as they are: the trainer asks them for a rate each epoch.
 """
 
@@ -59,6 +61,29 @@ def build_optimizer(opt_config, params):
     else:
         raise ValueError(f"unknown optimizer {opt_config.name!r}")
     return opt, base_lr
+
+
+def prefix_param_groups(module, rules, multipliers, default="head"):
+    """Parameter groups by name prefix: the counterpart of the JAX package's
+    ``make_prefix_labeler`` with its ``{label: multiplier}`` map.
+
+    A parameter whose dot-joined name is a key of ``rules`` or starts with
+    one followed by a dot gets that rule's label (``backbone`` matches
+    ``backbone.x``, not ``backbone2.x``; the first matching rule wins),
+    every other parameter ``default``. Returns one group
+    ``{"params": [...], "lr_mult": m}`` per label of ``multipliers`` that
+    holds a parameter, so each parameter is in exactly one group."""
+    params = {label: [] for label in multipliers}
+    for name, p in module.named_parameters():
+        label = next((lab for prefix, lab in rules.items()
+                      if name == prefix or name.startswith(prefix + ".")),
+                     default)
+        if label not in params:
+            raise KeyError(f"parameter {name} has label {label!r}, which has "
+                           f"no multiplier in {sorted(multipliers)}")
+        params[label].append(p)
+    return [{"params": ps, "lr_mult": float(multipliers[label]), "label": label}
+            for label, ps in params.items() if ps]
 
 
 def set_learning_rate(optimizer, lr):

@@ -4,8 +4,9 @@ Counterpart of ``hawkeye_tpu/losses/__init__.py``. Criterion contract:
 ``criterion(outputs: dict, batch: dict) -> scalar loss`` where ``outputs``
 holds at least 'logits' and ``batch`` has 'label' (int [B]) or soft 'label'
 [B, C], and optionally a per-sample 'weight' [B]. The reference's default is
-``CrossEntropyLoss(label_smoothing=0.1)`` (``train.py:211-212``). Only the
-cross-entropy is ported so far; the method losses wait.
+``CrossEntropyLoss(label_smoothing=0.1)`` (``train.py:211-212``). Ported so
+far: the cross-entropy, ``PairwiseConfusionLoss`` and ``PeerLearningLoss``;
+the other method losses wait.
 """
 
 from __future__ import annotations
@@ -50,6 +51,10 @@ LOSS.register(CrossEntropyLoss, name="CrossEntropyLoss")
 
 
 def build_criterion(criterion_config):
+    # late imports: loss modules register themselves on import
+    from . import pair_confusion  # noqa: F401
+    from . import peer_learning  # noqa: F401
+
     if criterion_config is None or "name" not in criterion_config:
         return CrossEntropyLoss()
     return LOSS.get(criterion_config.name)(criterion_config)

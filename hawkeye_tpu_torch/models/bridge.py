@@ -8,7 +8,9 @@ can compare parameters and statistics after an update.
 
 Name map, built from the module itself: a module path keeps its segments,
 except that inside a VGG trunk ``features.N`` is flax's ``convN`` (the
-torchvision index, for ``nn.Conv`` and the ``_Conv3x3Params`` twin alike);
+torchvision index, for ``nn.Conv`` and the ``_Conv3x3Params`` twin alike;
+in a nested model such as Peer-Learning's ``base_model``/``base_model2``
+the rewrite applies inside each of its VGG trunks);
 ResNet's ``conv1``/``layer1_0``/... are flax's names as they are. Leaves:
 a conv or dense ``weight`` is ``kernel``; a BatchNorm ``weight`` is
 ``scale``, its ``running_mean``/``running_var`` are
@@ -60,10 +62,14 @@ def _flax_key(module, name):
 
 def _name_map(module):
     """{(collection, flax path): (torch name, tensor)} over the parameters and
-    the buffers (``num_batches_tracked`` has no flax counterpart)."""
+    the persistent buffers (``num_batches_tracked`` has no flax counterpart;
+    a non-persistent buffer, such as CBCNN's sketches and irDFT matrices, is
+    a derived constant like flax's ``fourier_cache``, which the bridge
+    neither reads nor writes)."""
+    persistent = set(module.state_dict())
     tensors = dict(module.named_parameters())
     tensors.update((n, b) for n, b in module.named_buffers()
-                   if not n.endswith("num_batches_tracked"))
+                   if n in persistent and not n.endswith("num_batches_tracked"))
     return {_flax_key(module, n): (n, t) for n, t in tensors.items()}
 
 

@@ -1,1 +1,1 @@
-from . import baseline, bcnn  # noqa: F401  (MODEL registrations)
+from . import baseline, bcnn, cbcnn, mpn, peer_learning  # noqa: F401  (MODEL registrations)

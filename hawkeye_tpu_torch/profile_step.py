@@ -1,7 +1,8 @@
 """Where a train step spends its device time.
 
-    python -m hawkeye_tpu_torch.profile_step [--model bcnn|resnet50]
-                                             [--batch 8,128] [--steps 5]
+    python -m hawkeye_tpu_torch.profile_step
+        [--model bcnn|resnet50|cbcnn|mpn|peer_learning|pair_confusion]
+        [--batch 8,128] [--steps 5]
 
 ``--model bcnn`` (the default) builds the port's Trainer from
 ``configs/BCNN_S2.yaml`` (VGG-16, 448x448, 200 classes,
@@ -11,7 +12,14 @@ ResNet-50, 448x448, 200 classes) with ``bench.py``'s train step: SGD (lr
 0.01, momentum 0.9, weight decay 1e-4) and the device pipeline on
 device-resident uint8 ``[B, 512, 512, 3]`` images, augmented on the card by
 random-resized crop with the flip, normalisation and erasing (p 0.1), no
-TA-wide, bfloat16 out. Random weights, synthetic data, on the CUDA device.
+TA-wide, bfloat16 out. The other four build their Example trainer
+(``examples/``) from the recipe at its own input size, on device-resident
+random float images: ``cbcnn`` from ``configs/CBCNN_S2.yaml`` (448x448,
+d = 6000), ``mpn`` from ``configs/MPN.yaml`` (ResNet-50, 224x224),
+``peer_learning`` from ``configs/PeerLearning_BCNN_S2.yaml`` (two BCNN
+VGG-16 peers, 224x224, ``fused_pooling: true``, drop rate 0.25) and
+``pair_confusion`` from ``configs/PC_resnet50.yaml`` (Baseline ResNet-50,
+224x224). Random weights, synthetic data, on the CUDA device.
 
 For each batch size it times ``--steps`` train steps with a sync at each
 end, then profiles the same number of steps with ``torch.profiler``. Prints
@@ -21,12 +29,18 @@ idle share, kernel time by category and the top kernels, and the three
 ported kernels' device time per launch. A kernel's category comes from the
 host op that launched it where that says more than its name: everything
 the augmentation launches is ``augmentation``, everything under the
-optimizer's step is ``optimizer``. Needs a CUDA device.
+optimizer's step is ``optimizer``; for ``cbcnn`` every kernel under an
+``aten::bmm`` or ``aten::mm`` (the Gram, the sketch products, the
+per-frequency reduction and the irDFT matmuls, forward and backward; not
+``fc``'s backward) is ``compact_bilinear``, and for ``mpn`` every kernel
+under an ``aten::bmm`` (the covariance and the Newton-Schulz products) is
+``covariance_newton_schulz``. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import os
 import shutil
@@ -47,6 +61,16 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PORTED = {"pool_fwd_kernel": "pool_fwd", "pool_bwd_kernel": "pool_bwd",
            "gram_signed_sqrt": "gram_signed_sqrt"}
 _AUGMENT = "hk::augment"  # the profiler range around the device augmentation
+# model -> (category, host ops whose kernels it takes): the high-order heads
+_HEADS = {"cbcnn": ("compact_bilinear", ("aten::bmm", "aten::mm")),
+          "mpn": ("covariance_newton_schulz", ("aten::bmm",))}
+# recipe, Example module and trainer, input size of the other models
+_RECIPES = {"cbcnn": ("CBCNN_S2.yaml", "CBCNN", "CBCNNTrainer", 448),
+            "mpn": ("MPN.yaml", "MPN", "MPNTrainer", 224),
+            "peer_learning": ("PeerLearning_BCNN_S2.yaml", "PeerLearning",
+                              "PLTrainer", 224),
+            "pair_confusion": ("PC_resnet50.yaml", "PairConfusion",
+                               "PairConfusionTrainer", 224)}
 
 
 def _category(name: str) -> str:
@@ -68,24 +92,39 @@ def _category(name: str) -> str:
     return "elementwise/other"
 
 
-def _launch_category(event) -> str | None:
+def _launch_category(event, head=None) -> str | None:
     """The category that the launching host op, or one above it, sets."""
+    names = []
     while event is not None:
         if event.name == _AUGMENT:
             return "augmentation"
         if event.name.startswith("Optimizer.step"):
             return "optimizer"
+        names.append(event.name)
         event = event.cpu_parent
+    if head and any(n in head[1] for n in names) and not any(
+            "AddmmBackward" in n for n in names):
+        return head[0]
     return None
 
 
 def bench_trainer(model, run_dir, batch, device=None):
     """The port's Trainer for the benchmark step of ``model`` (on CUDA
     unless ``device`` says otherwise)."""
+    trainer_cls = Trainer
     if model == "bcnn":
         cfg = load_yaml_config(os.path.join(ROOT, "configs", "BCNN_S2.yaml")).to_dict()
         cfg["dataset"] = {"transformer": cfg["dataset"]["transformer"]}
         cfg["model"].update(load=None, fused_pooling=True)
+    elif model in _RECIPES:
+        recipe, module, cls, _ = _RECIPES[model]
+        trainer_cls = getattr(importlib.import_module(
+            f"{__package__}.examples.{module}"), cls)
+        cfg = load_yaml_config(os.path.join(ROOT, "configs", recipe)).to_dict()
+        cfg["dataset"] = {"transformer": cfg["dataset"]["transformer"]}
+        cfg["model"].update(load=None)
+        if model == "peer_learning":
+            cfg["model"]["base_model"].update(fused_pooling=True)
     else:
         cfg = load_yaml_config(os.path.join(ROOT, "configs", "Baseline.yaml")).to_dict()
         cfg["dataset"] = {"pipeline": "device",
@@ -98,7 +137,7 @@ def bench_trainer(model, run_dir, batch, device=None):
     cfg["dataset"].update(name="synthetic", length=batch, batch_size=batch,
                           num_workers=0, num_classes=200)
     cfg["model"].update(num_classes=200)
-    trainer = Trainer(ConfigNode(cfg).freeze(), device=device)
+    trainer = trainer_cls(ConfigNode(cfg).freeze(), device=device)
     if model == "resnet50":
         # bench.py's augmentation: crop with the flip, normalize, erase 0.1,
         # bfloat16 out (the trunk computes in bfloat16 anyway)
@@ -107,19 +146,23 @@ def bench_trainer(model, run_dir, batch, device=None):
 
 
 def bench_batches(model, batch, n, seed=0, device="cuda"):
-    """``n`` device-resident batches, each its own: float images for BCNN,
-    the device pipeline's uint8 decodes for ResNet-50."""
+    """``n`` device-resident batches, each its own: float images for BCNN
+    and the Example trainers' models, the device pipeline's uint8 decodes
+    for ResNet-50."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    size = _RECIPES[model][3] if model in _RECIPES else 448
     out = []
     for _ in range(n):
-        if model == "bcnn":
-            img = torch.randn((batch, 448, 448, 3), device=device, generator=gen)
-        else:
+        if model == "resnet50":
             img = torch.randint(0, 256, (batch, 512, 512, 3), device=device,
                                 dtype=torch.uint8, generator=gen)
+        else:
+            img = torch.randn((batch, size, size, 3), device=device, generator=gen)
         out.append({"img": img, "label": torch.randint(
             0, 200, (batch,), device=device, generator=gen)})
+        if model == "peer_learning":
+            out[-1]["drop_rate"] = 0.25
     return out
 
 
@@ -173,7 +216,7 @@ def profile_batch(model, batch, steps, run_dir):
     # own categories; a CUDA API event ("cudaLaunchKernel", ...) can carry a
     # kernel that its calling op carries too, so only ops are read
     for event in prof.events():
-        c = _launch_category(event)
+        c = _launch_category(event, _HEADS.get(model))
         if c is None or event.name.startswith("cu"):
             continue
         for k in event.kernels:
@@ -202,7 +245,8 @@ def profile_batch(model, batch, steps, run_dir):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--model", choices=("bcnn", "resnet50"), default="bcnn")
+    parser.add_argument("--model", default="bcnn",
+                        choices=("bcnn", "resnet50", *_RECIPES))
     parser.add_argument("--batch", default="8,128")
     parser.add_argument("--steps", type=int, default=5)
     args = parser.parse_args(argv)

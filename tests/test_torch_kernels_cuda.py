@@ -30,9 +30,16 @@ def card():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(4, 16, 12, 72), (3, 6, 10, 5),
-                                   (2, 448, 448, 64)],
-                         ids=["vector", "scalar", "vgg_block1"])
+                                   (2, 448, 448, 64), (16, 224, 224, 64),
+                                   (16, 112, 112, 128), (16, 56, 56, 256),
+                                   (16, 28, 28, 512), (16, 14, 14, 512)],
+                         ids=["vector", "scalar", "vgg_block1", "vgg224_b16_1",
+                              "vgg224_b16_2", "vgg224_b16_3", "vgg224_b16_4",
+                              "vgg224_b16_5"])
 def test_pool_kernels_bit_exact(card, dtype, shape):
+    """The shapes: vector and scalar paths, VGG-16's first map at 448x448,
+    and its five pool inputs at 224x224, batch 16 (Peer-Learning, CBCNN
+    stage 1)."""
     x = (torch.round(torch.randn(shape, device="cuda", generator=card) * 2) / 2
          ).to(dtype)
     _build.reset_launches()
@@ -70,9 +77,9 @@ def test_pool_wrappers_reject_what_the_kernel_does_not_take(card):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(3, 50, 200), (8, 196, 512), (1, 4, 64),
                                    (128, 196, 512), (2, 784, 512),
-                                   (2, 196, 2048)],
+                                   (2, 196, 2048), (16, 49, 512)],
                          ids=["ragged", "bcnn", "one_tile", "bcnn_b128",
-                              "map28", "resnet50_width"])
+                              "map28", "resnet50_width", "peer_learning_224"])
 def test_gram_kernel_close_to_plain(card, dtype, shape):
     """Both kernels (bf16 wgmma, float32 FMA) against the plain float32
     product of the same inputs: rtol 1e-4 / atol 1e-5, for accumulation
@@ -80,7 +87,9 @@ def test_gram_kernel_close_to_plain(card, dtype, shape):
     epilogue, the multiply by 1/HW and the hardware square root (relative
     error below 2^-22, far inside the tolerance). The shapes: the main
     path at batch 8 and 128, ragged HW and C, one tile, the 28x28 map (HW
-    spans many ring stages) and the ResNet-50 width."""
+    spans many ring stages), the ResNet-50 width and Peer-Learning's 7x7
+    map at batch 16 (HW = 49, no multiple of the k16 step: the last step
+    reads TMA's zero fill)."""
     x = torch.relu(torch.randn(shape, device="cuda", generator=card)).to(dtype)
     _build.reset_launches()
     got = fused_bilinear.gram_signed_sqrt_forward(x)

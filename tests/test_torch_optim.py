@@ -129,3 +129,36 @@ def test_build_criterion_defaults_to_smoothed_ce():
                                        "label_smoothing": 0.0})).label_smoothing == 0.0
     with pytest.raises(KeyError):
         build_criterion(ConfigNode({"name": "MAMCLoss"}))
+
+
+def test_prefix_param_groups_label_like_make_prefix_labeler():
+    """Whole name segments only, first rule wins, every parameter in exactly
+    one group; the labels are those of the JAX labeler on the same names."""
+    from torch import nn
+
+    model = nn.Module()
+    model.backbone = nn.Linear(2, 2)
+    model.backbone2 = nn.Linear(2, 2)
+    model.head = nn.Module()
+    model.head.fc = nn.Linear(2, 2)
+    rules = {"backbone": "backbone", "head.fc": "fc"}
+    groups = port_optim.prefix_param_groups(
+        model, rules, {"backbone": 0.2, "fc": 0.5, "head": 1.0})
+    by_label = {g["label"]: g for g in groups}
+    names = {id(p): n for n, p in model.named_parameters()}
+    got = {names[id(p)]: g["label"] for g in groups for p in g["params"]}
+    assert sorted(got) == sorted(names.values())  # each parameter once
+    tree = {"backbone": {"kernel": 0, "bias": 0}, "backbone2": {"kernel": 0, "bias": 0},
+            "head": {"fc": {"kernel": 0, "bias": 0}}}
+    want = jax_optim.make_prefix_labeler(rules)(tree)
+    for name, label in got.items():
+        *path, leaf = name.split(".")
+        node = want
+        for seg in path:
+            node = node[seg]
+        assert node[{"weight": "kernel"}.get(leaf, leaf)] == label, name
+    assert got["backbone2.weight"] == "head"
+    assert {k: g["lr_mult"] for k, g in by_label.items()} == {
+        "backbone": 0.2, "fc": 0.5, "head": 1.0}
+    with pytest.raises(KeyError, match="no multiplier"):
+        port_optim.prefix_param_groups(model, rules, {"backbone": 0.2, "head": 1.0})

@@ -84,7 +84,10 @@ def test_tester_and_test_entry_default_to_cuda_and_raise_without_it(
 
 
 @pytest.mark.parametrize("name", ["BCNN_S1.yaml", "BCNN_S2.yaml", "Baseline.yaml",
-                                  "Baseline_synthetic.yaml", "test.yaml"])
+                                  "Baseline_synthetic.yaml", "test.yaml",
+                                  "CBCNN_S1.yaml", "CBCNN_S2.yaml", "MPN.yaml",
+                                  "PeerLearning_BCNN_S1.yaml",
+                                  "PeerLearning_BCNN_S2.yaml", "PC_resnet50.yaml"])
 def test_config_copy_reads_recipes_like_jax(name):
     path = os.path.join(ROOT, "configs", name)
     port = setup_config(argv=["--config", path])
@@ -118,3 +121,70 @@ def test_cuda_wrappers_refuse_other_devices():
         fused_bilinear.gram_signed_sqrt_forward(meta.reshape(2, 16, 8))
     with pytest.raises(TypeError):
         _build.dtype_code(torch.float16)
+
+
+# recipe -> (model class, criterion class, Example module, the model's
+# parameter-name prefixes)
+RECIPES = {
+    "CBCNN_S1.yaml": ("CBCNN", "CrossEntropyLoss", "CBCNN", {"backbone", "fc"}),
+    "CBCNN_S2.yaml": ("CBCNN", "CrossEntropyLoss", "CBCNN", {"backbone", "fc"}),
+    "MPN.yaml": ("MPN", "CrossEntropyLoss", "MPN",
+                 {"backbone", "dr_conv", "dr_bn", "fc"}),
+    "PeerLearning_BCNN_S1.yaml": ("PeerLearningNet", "PeerLearningLoss",
+                                  "PeerLearning", {"base_model", "base_model2"}),
+    "PeerLearning_BCNN_S2.yaml": ("PeerLearningNet", "PeerLearningLoss",
+                                  "PeerLearning", {"base_model", "base_model2"}),
+    "PC_resnet50.yaml": ("BaselineClassifier", "PairwiseConfusionLoss",
+                         "PairConfusion", {"backbone", "fc"}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RECIPES))
+def test_recipe_builds_on_cpu_with_its_registered_names(name):
+    """The recipe's model, criterion and Example trainer are registered
+    under the names the JAX package uses, and the model builds from the
+    recipe at full width on the CPU."""
+    import importlib
+
+    import hawkeye_tpu_torch.models  # noqa: F401
+    from hawkeye_tpu_torch import LOSS
+    from hawkeye_tpu_torch.examples import TRAINERS
+    from hawkeye_tpu_torch.losses import build_criterion
+
+    model_cls, loss_name, example, prefixes = RECIPES[name]
+    cfg = setup_config(argv=["--config", os.path.join(ROOT, "configs", name)])
+    model = MODEL.get(cfg.model.name)(cfg.model)
+    assert type(model).__name__ == model_cls
+    assert {n.split(".")[0] for n, _ in model.named_parameters()} == prefixes
+    assert all(p.device.type == "cpu" for p in model.parameters())
+    crit = build_criterion(cfg.train.criterion)
+    assert type(crit).__name__ == loss_name and LOSS.get(loss_name) is type(crit)
+    module = importlib.import_module(f"hawkeye_tpu_torch.examples.{example}")
+    trainer_cls = getattr(module, TRAINERS[example])
+    from hawkeye_tpu_torch.engine import Trainer
+
+    assert issubclass(trainer_cls, Trainer)
+    if cfg.model.name == "CBCNN":
+        assert model.fc.in_features == int(cfg.model.output_channel) == 6000
+        assert model.irdft_cos.shape == (3001, 3001)
+    if cfg.model.name == "PeerLearningNet":
+        assert int(model.base_model.stage) == int(cfg.model.base_model.stage)
+
+
+def test_example_entry_points_default_to_cuda_and_raise_without_it(
+        tmp_path, monkeypatch):
+    import importlib
+
+    from hawkeye_tpu_torch import train
+    from hawkeye_tpu_torch.examples import TRAINERS
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    for example, cls in TRAINERS.items():
+        trainer_cls = getattr(importlib.import_module(
+            f"hawkeye_tpu_torch.examples.{example}"), cls)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            train.main(["--config", os.path.join(ROOT, "configs", "MPN.yaml")],
+                       trainer_cls=trainer_cls)
+    assert not os.listdir(tmp_path)
+
