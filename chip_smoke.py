@@ -59,16 +59,21 @@ exits non-zero:
    512->448 center crop normalised in bf16, as ``bench.py`` times it.
 
 10. kernels_highorder_shapes: the three kernels at the shapes the new paths
-    give them: the pool kernels on VGG-16's maps at 224x224, batch 16,
-    bit-exact; the Gram at x [16, 49, 512] bf16 (Peer-Learning's fused
-    heads, K = 49) within the Gram tolerances; times and bounds as phase 3.
-11. reference_highorder: CBCNN (VGG-16, 64x64, d = 6000, float32) on the
-    card against the CPU: logits within 1e-4, gradients within 1e-2 of the
-    largest value. MPN on ResNet-50 (64x64, reduction 256), one train-mode
-    step: in float64 (the head is float32 either way) logits and
+    give them: the pool kernels on VGG-16's maps at 448x448, batch 16
+    (CBCNN stage 2) and at 224x224, batch 16 (Peer-Learning, CBCNN stage
+    1), bit-exact; the Gram at x [16, 49, 512] bf16 (Peer-Learning's fused
+    heads, K = 49) within the Gram tolerances; kernel, plain and library
+    times and bounds as phase 3.
+11. reference_highorder: CBCNN (VGG-16, 64x64, d = 6000) on the card
+    against the CPU: float32 logits within 1e-4 of the largest value, and
+    the whole model in float64 (trunk, head and classifier) with logits and
+    gradients within 1e-8; the float32 gradients are printed beside, with
+    a float64 trunk under the float32 head and the CPU's own float32
+    against float64. MPN on ResNet-50 (64x64, reduction 256), one
+    train-mode step: in float64 (the head is float32 either way) logits and
     ``dr_bn``'s running variance within 1e-4, gradients within 1e-2; the
     float32 logits within 1e-3 (the CPU's own float32 run is ~5e-4 from its
-    float64 one, printed beside, as is CBCNN's). The Peer-Learning kept masks identical and
+    float64 one, printed beside). The Peer-Learning kept masks identical and
     both losses within 1e-6, at every agreement count of a batch of 16 and
     every value of a T_k = 10 drop-rate ramp.
 12. slice_highorder: each recipe through its Example trainer
@@ -85,9 +90,10 @@ exits non-zero:
     all three in Peer-Learning S2 (the Gram twice per forward), none in MPN
     and Pairwise Confusion.
 13. throughput_highorder: 3 warm-up and 10 timed train steps of each recipe
-    at its shape (CBCNN and Peer-Learning at stage 2, Peer-Learning with
-    drop rate 0.25) on device-resident float inputs, synchronised at each
-    end: ``cbcnn_train_images_per_sec``, ``mpn_train_images_per_sec``,
+    at its shape, on ``profile_step``'s benchmark trainer and batches for it
+    (CBCNN and Peer-Learning at stage 2, Peer-Learning with drop rate 0.25;
+    device-resident float inputs), synchronised at each end:
+    ``cbcnn_train_images_per_sec``, ``mpn_train_images_per_sec``,
     ``peer_learning_train_images_per_sec`` and
     ``pair_confusion_train_images_per_sec`` with peak memory, one line each.
     CBCNN's line also times its head's inverse transform both ways at the
@@ -126,10 +132,19 @@ B = 8
 PL_POOL_SHAPES = [(16, 224, 224, 64), (16, 112, 112, 128), (16, 56, 56, 256),
                   (16, 28, 28, 512), (16, 14, 14, 512)]
 PL_GRAM_SHAPE = (16, 49, 512)
+# CBCNN stage 2's VGG-16 pool inputs at 448x448, batch 16
+CB_POOL_SHAPES = [(16, 448, 448, 64), (16, 224, 224, 128), (16, 112, 112, 256),
+                  (16, 56, 56, 512), (16, 28, 28, 512)]
 POOL_SHAPES = [(B, 448, 448, 64), (B, 224, 224, 128), (B, 112, 112, 256),
                (B, 56, 56, 512), (B, 28, 28, 512)]
 GRAM_SHAPES = [(B, 196, 512), (128, 196, 512)]  # recipe batch, throughput batch
 GRAM_RTOL, GRAM_ATOL = 1e-4, 1e-5
+# per element of a bf16 pool input x: the forward reads x (2 bytes) and
+# writes p (1/2) and codes (1/4); the backward reads dp, p (1/2 each) and
+# codes (1/4) and writes dx (2). ~7 float32 compare/max per pooled value.
+POOL_FWD_BYTES, POOL_BWD_BYTES, POOL_OPS = 2.75, 3.25, 7 / 4
+# CBCNN in float64 on the card against the CPU, relative to the largest value
+CB_F64_TOL = 1e-8
 
 
 def emit(phase, **fields):
@@ -187,12 +202,48 @@ def bound(bytes_moved, ops, peak_ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _pool_case(torch, shape, gen):
+    """The pool kernels at one shape: bit-exact against their plain versions,
+    then kernel, plain and library device times and the bounds."""
+    import torch.nn.functional as F
+
+    from hawkeye_tpu_torch.ops import pool
+
+    x = torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
+    p, idx = pool.pool_fwd(x)
+    p_ref, idx_ref = pool.pool_fwd_plain(x)
+    dp = torch.randn(p.shape, device="cuda", generator=gen).to(torch.bfloat16)
+    if not (torch.equal(p, p_ref) and torch.equal(idx, idx_ref) and torch.equal(
+            pool.pool_bwd(dp, idx, p), pool.pool_bwd_plain(dp, idx, p))):
+        raise AssertionError(f"pool kernels differ from plain at {shape}")
+    del p_ref, idx_ref
+    # the library's yardsticks (the port calls neither): relu then
+    # max_pool2d with indices on channels-last, and max_pool2d's backward
+    x_cl, dp_cl = x.permute(0, 3, 1, 2), dp.permute(0, 3, 1, 2)
+    xr_cl = F.relu(x_cl)
+    lib_idx = F.max_pool2d(xr_cl, 2, 2, return_indices=True)[1]
+    n = x.numel()
+    row = {"shape": list(shape),
+           "fwd_ms": cuda_ms(torch, lambda: pool.pool_fwd(x)),
+           "fwd_plain_ms": cuda_ms(torch, lambda: pool.pool_fwd_plain(x)),
+           "fwd_library_ms": cuda_ms(torch, lambda: F.max_pool2d(
+               F.relu(x_cl), 2, 2, return_indices=True)),
+           "fwd_bound_ms": bound(POOL_FWD_BYTES * n, POOL_OPS * n, PEAK_F32_S)[0],
+           "bwd_ms": cuda_ms(torch, lambda: pool.pool_bwd(dp, idx, p)),
+           "bwd_plain_ms": cuda_ms(torch, lambda: pool.pool_bwd_plain(dp, idx, p)),
+           "bwd_library_ms": cuda_ms(
+               torch, lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+                   dp_cl, xr_cl, [2, 2], [2, 2], [0, 0], [1, 1], False, lib_idx)),
+           "bwd_bound_ms": bound(POOL_BWD_BYTES * n, POOL_OPS * n, PEAK_F32_S)[0]}
+    del x, p, idx, dp, x_cl, dp_cl, xr_cl, lib_idx
+    torch.cuda.empty_cache()
+    return row
+
+
 # ----------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ----------------------------------------------------------------------------
 def check_kernels(torch):
-    import torch.nn.functional as F
-
     from hawkeye_tpu_torch.ops import fused_bilinear, pool
     from hawkeye_tpu_torch.ops.bilinear import ssqrt
 
@@ -206,61 +257,16 @@ def check_kernels(torch):
                              ops=0.0, max_abs_err=0.0)}
     per_shape = []
     for shape in POOL_SHAPES:
-        b, h, w, c = shape
-        n = b * h * w * c
-        x = torch.randn(shape, device=dev, generator=gen).to(bf16)
-        p, idx = pool.pool_fwd(x)
-        p_ref, idx_ref = pool.pool_fwd_plain(x)
-        torch.cuda.synchronize()
-        if not (torch.equal(p, p_ref) and torch.equal(idx, idx_ref)):
-            raise AssertionError(f"pool_fwd differs from plain at {shape}")
-        dp = torch.randn(p.shape, device=dev, generator=gen).to(bf16)
-        dx = pool.pool_bwd(dp, idx, p)
-        dx_ref = pool.pool_bwd_plain(dp, idx, p)
-        torch.cuda.synchronize()
-        if not torch.equal(dx, dx_ref):
-            raise AssertionError(f"pool_bwd differs from plain at {shape}")
-        for name, err in (("pool_fwd", (p.float() - p_ref.float()).abs().max()),
-                          ("pool_bwd", (dx.float() - dx_ref.float()).abs().max())):
-            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], float(err))
-
-        # the library's yardsticks (the port calls neither): relu then
-        # max_pool2d with indices on channels-last, and max_pool2d's backward
-        x_cl = x.permute(0, 3, 1, 2)
-        xr_cl = F.relu(x_cl)
-        _, lib_idx = F.max_pool2d(xr_cl, 2, 2, return_indices=True)
-        dp_cl = dp.permute(0, 3, 1, 2)
-        t = {
-            "fwd": cuda_ms(torch, lambda: pool.pool_fwd(x)),
-            "fwd_plain": cuda_ms(torch, lambda: pool.pool_fwd_plain(x)),
-            "fwd_lib": cuda_ms(torch, lambda: F.max_pool2d(
-                F.relu(x_cl), 2, 2, return_indices=True)),
-            "bwd": cuda_ms(torch, lambda: pool.pool_bwd(dp, idx, p)),
-            "bwd_plain": cuda_ms(torch, lambda: pool.pool_bwd_plain(dp, idx, p)),
-            "bwd_lib": cuda_ms(torch, lambda: torch.ops.aten.max_pool2d_with_indices_backward(
-                dp_cl, xr_cl, [2, 2], [2, 2], [0, 0], [1, 1], False, lib_idx)),
-        }
-        # bytes each function must move: fwd reads x (2N) and writes p (N/2)
-        # and codes (N/4); bwd reads dp, p (N/2 each) and codes (N/4) and
-        # writes dx (2N). Operations: ~7 float32 compare/max per pooled value.
-        fb, bb = 2.75 * n, 3.25 * n
-        ops = 7 * n / 4
-        for name, key, byt in (("pool_fwd", "fwd", fb), ("pool_bwd", "bwd", bb)):
-            r = rows[name]
-            r["ms"] += t[key]
-            r["plain_ms"] += t[key + "_plain"]
-            r["library_ms"] += t[key + "_lib"]
-            r["bytes"] += byt
-            r["ops"] += ops
-        bf, _ = bound(fb, ops, PEAK_F32_S)
-        bbd, _ = bound(bb, ops, PEAK_F32_S)
-        per_shape.append({"shape": list(shape), "fwd_ms": t["fwd"],
-                          "fwd_bound_ms": bf, "bwd_ms": t["bwd"],
-                          "bwd_bound_ms": bbd, "fwd_plain_ms": t["fwd_plain"],
-                          "bwd_plain_ms": t["bwd_plain"],
-                          "fwd_library_ms": t["fwd_lib"],
-                          "bwd_library_ms": t["bwd_lib"]})
-        del x, p, idx, p_ref, idx_ref, dp, dx, dx_ref, x_cl, xr_cl, lib_idx, dp_cl
+        r = _pool_case(torch, shape, gen)
+        per_shape.append(r)
+        n = math.prod(shape)
+        for name, key, byt in (("pool_fwd", "fwd", POOL_FWD_BYTES * n),
+                               ("pool_bwd", "bwd", POOL_BWD_BYTES * n)):
+            row = rows[name]
+            for k in ("ms", "plain_ms", "library_ms"):
+                row[k] += r[f"{key}_{k}"]
+            row["bytes"] += byt
+            row["ops"] += POOL_OPS * n
 
     # constructed ties (coarse grid) and all-negative windows
     x = (torch.round(torch.randn((B, 56, 56, 512), device=dev, generator=gen)
@@ -528,19 +534,17 @@ def run_slice(torch, run_dir):
     return s2, s2_launches
 
 
-def _train_rate(torch, trainer, size, batch, extra=None, warmup=3, timed=10):
+def _train_rate(torch, trainer, model, batch, warmup=3, timed=10):
     """Train images per second of ``timed`` steps after ``warmup``, each on
-    its own device-resident batch, with the peak memory and the kernel
-    launches per step."""
+    its own device-resident batch from ``profile_step.bench_batches`` (the
+    batches ``profile_step --model <model>`` profiles), with the peak memory,
+    the kernel launches per step and what the batches carry besides images
+    and labels (Peer-Learning's drop rate)."""
     from hawkeye_tpu_torch.ops import LAUNCHES, reset_launches
+    from hawkeye_tpu_torch.profile_step import bench_batches
 
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(3)
-    batches = [{"img": torch.randn((batch, size, size, 3), device="cuda",
-                                   generator=gen),
-                "label": torch.randint(0, 200, (batch,), device="cuda",
-                                       generator=gen), **(extra or {})}
-               for _ in range(timed)]
+    batches = bench_batches(model, batch, timed, seed=3)
+    extra = {k: v for k, v in batches[0].items() if k not in ("img", "label")}
     lr = float(trainer.config.train.optimizer.lr)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -557,14 +561,15 @@ def _train_rate(torch, trainer, size, batch, extra=None, warmup=3, timed=10):
     if not math.isfinite(loss):
         raise AssertionError(f"throughput step loss {loss}")
     return dict(images_per_sec=batch * timed / dt, ms_per_step=dt / timed * 1e3,
-                batch=batch, image_size=size, warmup_steps=warmup,
+                batch=batch, image_size=batches[0]["img"].shape[1], **extra,
+                warmup_steps=warmup,
                 timed_steps=timed, last_loss=loss,
                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                 launches_per_step={k: v / timed for k, v in LAUNCHES.items()})
 
 
 def run_throughput(torch, trainer, batch=128):
-    rate = _train_rate(torch, trainer, 448, batch)
+    rate = _train_rate(torch, trainer, "bcnn", batch)
     if rate["launches_per_step"] != {"pool_fwd": 5, "pool_bwd": 5,
                                      "gram_signed_sqrt": 1}:
         raise AssertionError(f"launches per step {rate['launches_per_step']}")
@@ -716,32 +721,26 @@ def run_throughput_resnet(torch, run_dir, batch=128, eval_batch=256, warmup=3,
 # ----------------------------------------------------------------------------
 def check_kernels_highorder(torch):
     """The three kernels at the shapes the new paths give them: the pool
-    kernels on VGG-16's maps at 224x224, batch 16 (Peer-Learning, CBCNN
-    stage 1), bit-exact; the Gram at x [16, 49, 512] bf16 (Peer-Learning's
-    fused BCNN heads; K = 49 is no multiple of the wgmma k16 step, so the
-    last step reads TMA's zero fill) within the Gram tolerances."""
-    from hawkeye_tpu_torch.ops import fused_bilinear, pool
+    kernels on VGG-16's maps at 448x448, batch 16 (CBCNN stage 2) and at
+    224x224, batch 16 (Peer-Learning, CBCNN stage 1), bit-exact; the Gram
+    at x [16, 49, 512] bf16 (Peer-Learning's fused BCNN heads; K = 49 is no
+    multiple of the wgmma k16 step, so the last step reads TMA's zero fill)
+    within the Gram tolerances. Pool times are summed over each path's five
+    shapes (one VGG-16 forward or backward)."""
+    from hawkeye_tpu_torch.ops import fused_bilinear
     from hawkeye_tpu_torch.ops.bilinear import ssqrt
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(6)
     bf16 = torch.bfloat16
-    pools = []
-    for shape in PL_POOL_SHAPES:
-        x = torch.randn(shape, device="cuda", generator=gen).to(bf16)
-        p, idx = pool.pool_fwd(x)
-        p_ref, idx_ref = pool.pool_fwd_plain(x)
-        dp = torch.randn(p.shape, device="cuda", generator=gen).to(bf16)
-        if not (torch.equal(p, p_ref) and torch.equal(idx, idx_ref) and torch.equal(
-                pool.pool_bwd(dp, idx, p), pool.pool_bwd_plain(dp, idx, p))):
-            raise AssertionError(f"pool kernels differ from plain at {shape}")
-        n = x.numel()
-        pools.append({"shape": list(shape),
-                      "fwd_ms": cuda_ms(torch, lambda: pool.pool_fwd(x)),
-                      "fwd_bound_ms": bound(2.75 * n, 7 * n / 4, PEAK_F32_S)[0],
-                      "bwd_ms": cuda_ms(torch, lambda: pool.pool_bwd(dp, idx, p)),
-                      "bwd_bound_ms": bound(3.25 * n, 7 * n / 4, PEAK_F32_S)[0]})
-        del x, p, idx, p_ref, idx_ref, dp
+    pools, pool_sums = [], {}
+    for path, shapes in (("cbcnn_448_b16", CB_POOL_SHAPES),
+                         ("vgg16_224_b16", PL_POOL_SHAPES)):
+        rows = [dict(_pool_case(torch, shape, gen), path=path)
+                for shape in shapes]
+        pools += rows
+        pool_sums[path] = {k: sum(r[k] for r in rows) for k in rows[0]
+                           if k.endswith("_ms")}
     xg = torch.relu(torch.randn(PL_GRAM_SHAPE, device="cuda", generator=gen)).to(bf16)
     y = fused_bilinear.gram_signed_sqrt_forward(xg)
     y_ref = fused_bilinear.gram_signed_sqrt_plain(xg)
@@ -759,7 +758,8 @@ def check_kernels_highorder(torch):
                     torch.bmm(xt, xg, out_dtype=torch.float32) / hw)),
                 bound_ms=bms, bound_by=by)
     emit("kernels_highorder_shapes", dtype="bfloat16", pool_bit_exact=True,
-         pool_shapes=pools, gram_rtol=GRAM_RTOL, gram_atol=GRAM_ATOL, gram=gram)
+         pool_sums=pool_sums, pool_shapes=pools, gram_rtol=GRAM_RTOL,
+         gram_atol=GRAM_ATOL, gram=gram)
 
 
 def _peer_case(torch, n_agree, seed, b=16, nc=200):
@@ -797,30 +797,41 @@ def check_reference_highorder(torch):
     def rel(a, b):
         return float((a - b).abs().max() / b.abs().max())
 
-    # CBCNN, VGG-16, d = 6000, float32
-    runs = {}
-    for dev in ("cpu", "cuda"):
-        m = CBCNN(num_classes=10, dtype=torch.float32)
+    f32, f64 = torch.float32, torch.float64
+
+    # CBCNN, VGG-16, d = 6000, one forward and backward of each precision
+    def cbcnn(trunk, head, dev):
+        m = CBCNN(num_classes=10, dtype=trunk)
         init_parameters(m, torch.Generator().manual_seed(8))
+        m.backbone.to(trunk)
+        # the pool kernels take float32 and bfloat16: a float64 trunk pools
+        # with F.max_pool2d, on both devices
+        m.backbone.efficient_pool = trunk != f64
+        if head == f64:  # fc, sketch spectra and irDFT matrices too
+            m.double()
         m.to(dev)
-        logits = m(x.to(dev))["logits"]
+        logits = m(x.to(dev, trunk))["logits"]
         F.cross_entropy(logits, y.to(dev)).backward()
-        runs[dev] = [t.detach().cpu() for t in (
+        return [t.detach().double().cpu() for t in (
             logits, m.backbone.features["0"].weight.grad, m.fc.weight.grad)]
-    # the CPU's own float32 against a float64 trunk (the head is float32 in
-    # both), beside the card's float32 against the CPU's
-    m = CBCNN(num_classes=10, dtype=torch.float64)
-    init_parameters(m, torch.Generator().manual_seed(8))
-    m.backbone.to(torch.float64)
-    logits = m(x.double())["logits"]
-    F.cross_entropy(logits, y).backward()
-    cpu64 = [t.detach().cpu() for t in (
-        logits, m.backbone.features["0"].weight.grad, m.fc.weight.grad)]
+
     names = ("logits", "conv0_grad", "fc_grad")
-    tols = dict(zip(names, (1e-4, 1e-2, 1e-2)))
-    cbcnn = {n: rel(a, b) for n, a, b in zip(names, runs["cuda"], runs["cpu"])}
-    cbcnn_cpu32_vs_64 = {n: rel(a.double(), b.double())
-                         for n, a, b in zip(names, runs["cpu"], cpu64)}
+    cb = {(t, h, dev): cbcnn(t, h, dev) for dev in ("cpu", "cuda")
+          for t, h in ((f32, f32), (f64, f32), (f64, f64))}
+
+    def cb_rel(a, b):
+        return {n: rel(u, v) for n, u, v in zip(names, cb[a], cb[b])}
+
+    # held: the float32 logits, and the whole model in float64; printed: the
+    # float32 gradients, which the signed square root's slope at 0
+    # (1/(2 sqrt(1e-10))) makes a reading of float32 rounding in the head
+    # and in the trunk (a float64 trunk under the float32 head shows the
+    # head's part), and the CPU's own float32 against float64
+    cbcnn32 = cb_rel((f32, f32, "cuda"), (f32, f32, "cpu"))
+    cbcnn64 = cb_rel((f64, f64, "cuda"), (f64, f64, "cpu"))
+    cbcnn_f32_head = cb_rel((f64, f32, "cuda"), (f64, f32, "cpu"))
+    cbcnn_cpu32_vs_64 = cb_rel((f32, f32, "cpu"), (f64, f64, "cpu"))
+    del cb
 
     # MPN on ResNet-50, reduction to 256, one train-mode step
     def mpn(dtype, dev):
@@ -836,7 +847,6 @@ def check_reference_highorder(torch):
             m.fc.weight.grad, m.dr_bn.running_var)]
 
     mnames = ("logits", "conv1_grad", "dr_conv_grad", "fc_grad", "dr_bn_running_var")
-    f32, f64 = torch.float32, torch.float64
     cpu32, cpu64 = mpn(f32, "cpu"), mpn(f64, "cpu")
     mpn64 = {n: rel(a, b) for n, a, b in zip(mnames, mpn(f64, "cuda"), cpu64)}
     mpn32 = {n: rel(a, b) for n, a, b in zip(mnames, mpn(f32, "cuda"), cpu32)}
@@ -865,7 +875,8 @@ def check_reference_highorder(torch):
             for dev in ("cpu", "cuda")]
         loss_err = max(loss_err, rel(pc[1], pc[0]))
 
-    checks = [("cbcnn " + n, cbcnn[n], tols[n]) for n in names]
+    checks = [("cbcnn float32 logits", cbcnn32["logits"], 1e-4)]
+    checks += [("cbcnn float64 " + n, cbcnn64[n], CB_F64_TOL) for n in names]
     checks += [("mpn float64 " + n, mpn64[n], 1e-4 if n in ("logits", "dr_bn_running_var")
                 else 1e-2) for n in mnames]
     # float32 logits: the CPU's own float32 run is ~2e-4 of the largest logit
@@ -877,8 +888,10 @@ def check_reference_highorder(torch):
             raise AssertionError(f"card vs CPU {name}: relative err {err} > {tol}")
     emit("reference_highorder", model="CBCNN vgg16 64x64 d=6000 float32; MPN "
          "resnet50 64x64 reduction 256, one train-mode step; TF32 off",
-         cbcnn_rel_err_of_max=cbcnn,
-         cbcnn_cpu_float32_vs_float64_trunk=cbcnn_cpu32_vs_64,
+         cbcnn_float32_rel_err_of_max=cbcnn32,
+         cbcnn_float64_rel_err_of_max=cbcnn64,
+         cbcnn_float64_trunk_float32_head_rel_err_of_max=cbcnn_f32_head,
+         cbcnn_cpu_float32_vs_float64=cbcnn_cpu32_vs_64,
          mpn_float64_rel_err_of_max=mpn64,
          mpn_float32_rel_err_of_max=mpn32,
          mpn_cpu_float32_vs_float64=cpu32_vs_64, loss_rel_err=loss_err,
@@ -959,6 +972,7 @@ def run_highorder(torch, run_dir, n_train=32):
     from hawkeye_tpu_torch.examples.MPN import MPNTrainer
     from hawkeye_tpu_torch.examples.PairConfusion import PairConfusionTrainer
     from hawkeye_tpu_torch.examples.PeerLearning import PLTrainer
+    from hawkeye_tpu_torch.profile_step import bench_trainer
 
     n_val = n_train // 4
     common = {"experiment": {"log_dir": run_dir},
@@ -979,6 +993,17 @@ def run_highorder(torch, run_dir, n_train=32):
     def add(launches):
         for k in total:
             total[k] += launches[k]
+
+    def rate(model, batch, want, **fields):
+        """The recipe's train rate: ``profile_step``'s benchmark trainer and
+        batches for ``model``, the step that ``profile_step`` profiles."""
+        trainer = bench_trainer(model, run_dir, batch)
+        r = _train_rate(torch, trainer, model, batch)
+        if model == "cbcnn":
+            fields.update(_inverse_transform_ms(torch, trainer.model, batch))
+        del trainer
+        torch.cuda.empty_cache()
+        _emit_rate(torch, model, r, want, **fields)
 
     # CBCNN: stage 1 at its recipe's 224x224, stage 2 at 448x448, batch 16
     b = 16
@@ -1014,15 +1039,13 @@ def run_highorder(torch, run_dir, n_train=32):
     if not same_logits or top1 != r2["val_acc"]:
         raise AssertionError(f"CBCNN Tester: logits equal {same_logits}, top-1 "
                              f"{top1} vs the Trainer's {r2['val_acc']}")
-    del tester, val, logits
+    del tester, val, logits, s2
+    torch.cuda.empty_cache()
     emit("slice_highorder", recipe="cbcnn", model="CBCNN vgg16 d=6000, 200 "
          "classes, synthetic", batch=b, stage1=dict(r1, image_size=224),
          stage2=dict(r2, image_size=448), tester_top1=top1,
          tester_logits_equal_trainer=same_logits)
-    _emit_rate(torch, "cbcnn", _train_rate(torch, s2, 448, b), per_step(1, 0),
-               stage=2, **_inverse_transform_ms(torch, s2.model, b))
-    del s2
-    torch.cuda.empty_cache()
+    rate("cbcnn", b, per_step(1, 0), stage=2)
 
     # MPN: ResNet-50, 224x224, batch 8, backbone at 0.2x the LR
     mpn, rm = _train_stage(torch, MPNTrainer, "MPN.yaml", run_dir, common,
@@ -1035,13 +1058,14 @@ def run_highorder(torch, run_dir, n_train=32):
         raise AssertionError(f"MPN groups: ratio {lr_ratio}, backbone params "
                              f"{len(groups['backbone']['params'])} of {n_backbone}")
     add(rm["launches"])
+    mpn_batch = int(mpn.config.dataset.batch_size)
     emit("slice_highorder", recipe="mpn", model="MPN resnet50 reduction 256, "
-         "200 classes, synthetic", batch=int(mpn.config.dataset.batch_size),
+         "200 classes, synthetic", batch=mpn_batch,
          image_size=224, lr_backbone=groups["backbone"]["lr"],
          lr_head=groups["head"]["lr"], lr_ratio=lr_ratio, **rm)
-    _emit_rate(torch, "mpn", _train_rate(torch, mpn, 224, 8), per_step(0, 0))
-    del mpn
+    del mpn, groups
     torch.cuda.empty_cache()
+    rate("mpn", mpn_batch, per_step(0, 0))
 
     # Peer-Learning: two BCNN VGG-16 peers, 224x224, batch 16
     p1, rp1 = _train_stage(torch, PLTrainer, "PeerLearning_BCNN_S1.yaml", run_dir,
@@ -1060,27 +1084,25 @@ def run_highorder(torch, run_dir, n_train=32):
         raise AssertionError(f"Peer-Learning meters not filled: {acc}")
     add(rp1["launches"])
     add(rp2["launches"])
+    del p2
+    torch.cuda.empty_cache()
     emit("slice_highorder", recipe="peer_learning", model="PeerLearningNet, two "
          "BCNN vgg16 peers, 200 classes, synthetic", batch=b, image_size=224,
          stage1=rp1, stage2=dict(rp2, fused_pooling=True, acc1=acc["acc1"],
                                  acc2=acc["acc2"]))
-    _emit_rate(torch, "peer_learning", _train_rate(
-        torch, p2, 224, b, extra={"drop_rate": 0.25}), per_step(2, 2), stage=2,
-        drop_rate=0.25, fused_pooling=True)
-    del p2
-    torch.cuda.empty_cache()
+    rate("peer_learning", b, per_step(2, 2), stage=2, fused_pooling=True)
 
     # Pairwise Confusion: Baseline ResNet-50, 224x224, batch 24
     pc, rpc = _train_stage(torch, PairConfusionTrainer, "PC_resnet50.yaml", run_dir,
                            common, counts(0, 0, 0))
     add(rpc["launches"])
+    pc_batch = int(pc.config.dataset.batch_size)
     emit("slice_highorder", recipe="pair_confusion", model="Baseline ResNet-50 "
          "with PairwiseConfusionLoss (lambda 0.1), 200 classes, synthetic",
-         batch=int(pc.config.dataset.batch_size), image_size=224, **rpc)
-    _emit_rate(torch, "pair_confusion", _train_rate(torch, pc, 224, 24),
-               per_step(0, 0))
+         batch=pc_batch, image_size=224, **rpc)
     del pc
     torch.cuda.empty_cache()
+    rate("pair_confusion", pc_batch, per_step(0, 0))
     return total
 
 

@@ -7,12 +7,3 @@ on the CUDA device unless ``--device cpu`` is given. Ported so far:
 Baseline, BCNN, CBCNN, MPN, PairConfusion and PeerLearning.
 """
 
-# Example module -> its Trainer class, as the JAX package names them
-TRAINERS = {
-    "Baseline": "BaselineTrainer",
-    "BCNN": "BCNNTrainer",
-    "CBCNN": "CBCNNTrainer",
-    "MPN": "MPNTrainer",
-    "PairConfusion": "PairConfusionTrainer",
-    "PeerLearning": "PLTrainer",
-}

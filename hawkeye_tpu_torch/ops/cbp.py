@@ -26,7 +26,8 @@ This head is plain XLA in the JAX package, not a Pallas kernel, so it stays
 ``torch.bmm``/``einsum`` here. Everything runs in float32; with TF32 off (the
 Trainer's ``set_tf32(False)``) a float32 matmul is the counterpart of JAX's
 ``Precision.HIGHEST`` in ``_irdft_apply``. The irDFT matrices must stay
-float32: a bfloat16 cast breaks the tolerance.
+float32: a bfloat16 cast breaks the tolerance. The head computes in the
+spectra's dtype: float64 spectra and matrices make a float64 reference.
 """
 
 from __future__ import annotations
@@ -91,9 +92,10 @@ def _irdft_apply(sr, si, irdft):
 def compact_bilinear_pool(features, spectrum1, spectrum2, *, out_dim=None,
                           signed_sqrt=True, l2_normalize=True, eps=1e-10,
                           via_gram=True, irdft=None):
-    """[B, H, W, C] -> [B, d] compact bilinear descriptor, float32.
+    """[B, H, W, C] -> [B, d] compact bilinear descriptor in the spectra's
+    dtype: float32, or float64 for a reference.
 
-    ``spectrum1``/``spectrum2``: ``(real, imag)`` float32 tensors [C, K], the
+    ``spectrum1``/``spectrum2``: ``(real, imag)`` tensors [C, K], the
     rfft of the two sketches (``sketch_spectrum``), on the features' device.
     ``out_dim`` is d (default ``2 * (K - 1)``); ``irdft`` the two
     ``make_irdft_half`` matrices, else the inverse is ``torch.fft.irfft``.
@@ -102,7 +104,7 @@ def compact_bilinear_pool(features, spectrum1, spectrum2, *, out_dim=None,
     s1r, s1i = spectrum1
     s2r, s2i = spectrum2
     d = out_dim or 2 * (s1r.shape[1] - 1)
-    x = features.reshape(b, h * w, c).float()
+    x = features.reshape(b, h * w, c).to(s1r.dtype)
     if via_gram:
         gram = torch.bmm(x.transpose(1, 2), x)  # [B, C, C]
         # W[k, b, d] = sum_c s2[c, k] M[b, c, d]; M is symmetric, so the

@@ -93,3 +93,24 @@ def test_gram_and_per_position_forms_agree():
     # unit rows after the L2 normalisation
     torch.testing.assert_close(torch.linalg.vector_norm(a, dim=-1),
                                torch.ones(B), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float64])
+def test_head_computes_in_the_spectra_dtype(dtype):
+    """float32 spectra make a float32 head whatever the features' dtype; the
+    float64 spectra and irDFT matrices of a reference make a float64 one,
+    which the float32 head meets within 1e-5 of the largest value."""
+    x, s1, s2, _ = _inputs()
+    xt = torch.from_numpy(x)
+    spec = [tuple(torch.from_numpy(a) for a in cbp.sketch_spectrum(s))
+            for s in (s1, s2)]
+    irdft = tuple(torch.from_numpy(m) for m in cbp.make_irdft_half(D))
+    want = cbp.compact_bilinear_pool(xt, *spec, irdft=irdft)
+    if dtype == torch.float64:
+        spec = [tuple(a.double() for a in s) for s in spec]
+        irdft = tuple(m.double() for m in irdft)
+    got = cbp.compact_bilinear_pool(xt.to(dtype), *spec, irdft=irdft)
+    assert got.dtype == (torch.float64 if dtype == torch.float64 else torch.float32)
+    if dtype != torch.bfloat16:
+        torch.testing.assert_close(got.float(), want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))

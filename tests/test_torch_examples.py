@@ -1,19 +1,16 @@
-"""The third slice as a whole, on the CPU: the port's Example trainers
-(hawkeye_tpu_torch/examples) against the JAX package's Examples/, and the
-two-stage flows through the recipes in configs/.
+"""The third slice's Example trainers (hawkeye_tpu_torch/examples) against
+the JAX package's Examples/ on the CPU, one file per recipe's step so each
+runs well under a minute: here CBCNN stage 2, Peer-Learning's in
+test_torch_examples_peer.py, MPN's in test_torch_examples_mpn.py, Pairwise
+Confusion's in test_torch_examples_resnet.py; the two-stage flows through
+the recipes in configs/ in test_torch_examples_flows.py.
 
 One step of each trainer pair on the same synthetic host batch, from
 bridged weights, through each trainer's own train step, as
 test_torch_trainer.py does: the loss within rtol 1e-4 and every parameter's
 update rtol 1e-3 with an atol of 1e-3 of the tensor's largest update plus
 four float32 ulps of the parameter. Here: CBCNN stage 2 (vgg11, 64x64,
-d = 64, float32, the recipe's SGD). Peer-Learning's step is in
-test_torch_examples_peer.py, MPN's and Pairwise Confusion's in
-test_torch_examples_resnet.py.
-
-Then the port alone: CBCNN S1 -> S2 -> the Tester, with no sketch or irDFT
-tensor in any ``.pt`` it writes, and Peer-Learning S1 -> S2 with the
-acc1/acc2 meters filled and the peer log line."""
+d = 64, float32, the recipe's SGD)."""
 
 import os
 import sys
@@ -28,12 +25,10 @@ import hawkeye_tpu_torch.models  # noqa: F401
 from hawkeye_tpu.config import setup_config as jax_setup_config
 from hawkeye_tpu.models.methods.cbcnn import CBCNN as JaxCBCNN
 from hawkeye_tpu_torch.config import setup_config
-from hawkeye_tpu_torch.engine import Tester
-from hawkeye_tpu_torch.examples import TRAINERS
 from hawkeye_tpu_torch.examples.CBCNN import CBCNNTrainer
-from hawkeye_tpu_torch.examples.PeerLearning import PLTrainer
 from hawkeye_tpu_torch.models import export_jax_variables, load_jax_variables
 from hawkeye_tpu_torch.models.methods.cbcnn import CBCNN
+from test_torch_package import example_trainers
 from test_torch_trainer import _assert_updates_close, _tiny_recipe_path
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -44,6 +39,21 @@ def _batch(seed, n=4, classes=4, size=64):
     rs = np.random.RandomState(seed)
     return {"img": rs.randn(n, size, size, 3).astype(np.float32),
             "label": rs.randint(0, classes, n).astype(np.int64)}
+
+
+class JitInit:
+    """Mixed into a JAX trainer: its model's init runs as one compiled
+    program, not op by op (~10 s less on the CPU). The port's model takes
+    whatever weights it makes through the bridge."""
+
+    def init_model_variables(self):
+        kwargs = self.init_model_kwargs()
+
+        def init(rng, x):
+            return self.model.init({"params": rng, "dropout": jax.random.fold_in(rng, 1)},
+                                   x, train=True, **kwargs)
+
+        return jax.jit(init)(jax.random.PRNGKey(self.seed), self.example_input())
 
 
 def one_step(jt, pt, batch, lr, keys=("correct",)):
@@ -63,13 +73,13 @@ def one_step(jt, pt, batch, lr, keys=("correct",)):
 
 
 def test_example_trainers_keep_the_jax_names():
+    """Each port Example module has its counterpart in Examples/, which
+    defines a class of the same name as the port's Trainer."""
     import importlib
 
-    for module, cls in TRAINERS.items():
-        port = getattr(importlib.import_module(
-            f"hawkeye_tpu_torch.examples.{module}"), cls)
-        ref = getattr(importlib.import_module(f"Examples.{module}"), cls)
-        assert port.__name__ == ref.__name__ == cls
+    for module, port in example_trainers().items():
+        ref = getattr(importlib.import_module(f"Examples.{module}"), port.__name__)
+        assert isinstance(ref, type)
 
 
 # ----------------------------------------------------------------------------
@@ -80,7 +90,7 @@ def _cbcnn_kwargs(cfg):
                 output_channel=int(cfg.output_channel), backbone_name=cfg.backbone)
 
 
-class JaxF32CBCNNTrainer(JaxCBCNNTrainer):
+class JaxF32CBCNNTrainer(JitInit, JaxCBCNNTrainer):
     def get_model(self, model_config):
         return JaxCBCNN(dtype=jnp.float32, **_cbcnn_kwargs(model_config))
 
@@ -99,85 +109,3 @@ def test_cbcnn_stage2_step_matches_jax_example(tmp_path):
     assert int(pt.config.model.stage) == 2
     assert pt.config.train.optimizer.name == "SGD"
     one_step(jt, pt, _batch(0), lr=float(pt.config.train.optimizer.lr))
-
-
-# ----------------------------------------------------------------------------
-# the two-stage flows, the port alone
-# ----------------------------------------------------------------------------
-def _stage(tmp_path, cls, name, overrides, loads=None):
-    """One stage through an Example trainer; ``loads``: the state dict
-    ``model.load`` must have filled the model with."""
-    cfg = setup_config(argv=["--config", _tiny_recipe_path(name, tmp_path, overrides)])
-
-    class Recording(cls):
-        def report(self, epoch, lr, train_metrics, val_metrics, images_per_sec):
-            self.last = (train_metrics, val_metrics)
-
-    trainer = Recording(cfg, device="cpu")
-    if loads is not None:
-        state = trainer.model.state_dict()
-        assert state.keys() == loads.keys()
-        assert all(torch.equal(state[k], v) for k, v in loads.items())
-    trainer.train()
-    return trainer
-
-
-def _state(model):
-    return {k: v.detach().clone() for k, v in model.state_dict().items()}
-
-
-def test_cbcnn_two_stages_then_the_tester(tmp_path):
-    over = {"model": {"output_channel": 64}, "train": {"epoch": 1},
-            "dataset": {"length": 16}}
-    s1 = _stage(tmp_path, CBCNNTrainer, "CBCNN_S1.yaml", over)
-    assert int(s1.config.model.stage) == 1
-    best1 = os.path.join(s1.log_root, "best_model.msgpack")  # the recipe's name
-    s2 = _stage(tmp_path, CBCNNTrainer, "CBCNN_S2.yaml",
-                {**over, "model": {"output_channel": 64, "load": best1}},
-                loads=_state(s1.model))
-    assert s2.step == 4
-    best2 = os.path.join(s2.log_root, "best_model.msgpack")
-    for root in (s1.log_root, s2.log_root):
-        for f in os.listdir(root):
-            if f.endswith(".pt"):
-                state = torch.load(os.path.join(root, f), weights_only=True)
-                state = state.get("model", state)
-                bad = [k for k in state if k.startswith(("sketch", "spectrum", "irdft"))]
-                assert not bad and "fc.weight" in state, (f, bad)
-    tester = Tester(setup_config(argv=["--config", _tiny_recipe_path(
-        "CBCNN_S2.yaml", tmp_path, {**over, "dataset": {"length": 4},
-                                    "model": {"output_channel": 64, "load": best2}})]),
-        device="cpu")
-    assert tester.test() == s2.last[1]["acc"]
-    val = s2.prepare_batch(next(iter(s2.dataloaders["val"])), train=False)
-    with torch.no_grad():
-        assert torch.equal(tester.model(val["img"])["logits"],
-                           s2.model.eval()(val["img"])["logits"])
-    # the constants are rebuilt at construction, not read from the file
-    assert torch.equal(tester.model.irdft_cos, s2.model.irdft_cos)
-
-
-def test_peer_learning_two_stages(tmp_path):
-    base = {"backbone": "vgg11", "num_classes": 4}
-    s1 = _stage(tmp_path, PLTrainer, "PeerLearning_BCNN_S1.yaml",
-                {"model": {"num_classes": 4, "T_k": 2, "base_model": base},
-                 "train": {"epoch": 2}})
-    np.testing.assert_array_equal(s1.rate_schedule, np.float32([0.0, 0.25]))
-    assert len(s1.performance_meters["train"]["acc1"].values) == 2
-    s1_state = _state(s1.model)
-    assert {k.split(".")[0] for k in s1_state} == {"base_model", "base_model2"}
-    best = os.path.join(s1.log_root, "best_model.msgpack")  # the recipe's name
-    s2 = _stage(tmp_path, PLTrainer, "PeerLearning_BCNN_S2.yaml",
-                {"model": {"num_classes": 4, "load": best,
-                           "base_model": {**base, "fused_pooling": True}},
-                 "train": {"epoch": 1}}, loads=s1_state)
-    assert s2.model.base_model.fused_pooling and s2.model.base_model2.fused_pooling
-    # stage 2 fine-tunes both nested trunks
-    for peer in ("base_model", "base_model2"):
-        w = f"{peer}.backbone.features.0.weight"
-        assert not torch.equal(s2.model.state_dict()[w], s1_state[w])
-    for k in ("acc1", "acc2"):
-        values = s2.performance_meters["train"][k].values
-        assert len(values) == 1 and 0.0 <= values[0] <= 100.0
-    with open(os.path.join(s2.log_root, "report.log")) as f:
-        assert "Epoch 0: peer acc1" in f.read()

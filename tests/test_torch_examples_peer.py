@@ -1,8 +1,9 @@
 """The port's Peer-Learning Example trainer against the JAX package's
 Examples/PeerLearning.py on the CPU: one stage-2 step of each on the same
-synthetic host batch from bridged weights (two vgg11 BCNN peers, 64x64,
-batch 8, the drop rate of the schedule's epoch 3), with the tolerances of
-test_torch_examples.py, and the peers' correct counts equal.
+synthetic host batch from bridged weights (two vgg11 BCNN peers, 32x32,
+a 1x1 post-pool5 map, batch 8, the drop rate of the schedule's epoch 3),
+with the tolerances of test_torch_examples.py, and the peers' correct
+counts equal.
 
 The peers' trunks run in float64 on both sides (their bilinear heads in
 float32, in both packages): at batch 8 a float32 trunk puts Gram entries
@@ -31,7 +32,7 @@ from hawkeye_tpu_torch.examples.PeerLearning import PLTrainer
 from hawkeye_tpu_torch.models import load_jax_variables
 from hawkeye_tpu_torch.models.methods.bcnn import BCNN
 from hawkeye_tpu_torch.models.methods.peer_learning import PeerLearningNet
-from test_torch_examples import _batch, one_step
+from test_torch_examples import JitInit, _batch, one_step
 from test_torch_trainer import _tiny_recipe_path
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -59,7 +60,7 @@ class PortF64PL(PeerLearningNet):
         self.base_model2 = BCNN(dtype=torch.float64, **kw)
 
 
-class JaxF64PLTrainer(JaxPLTrainer):
+class JaxF64PLTrainer(JitInit, JaxPLTrainer):
     def get_model(self, model_config):
         return JaxF64PL(base_config=_peer_kwargs(model_config))
 
@@ -71,7 +72,8 @@ class PortF64PLTrainer(PLTrainer):
 
 def test_peer_learning_stage2_step_matches_jax_example(tmp_path):
     path = _tiny_recipe_path("PeerLearning_BCNN_S2.yaml", tmp_path, {
-        "dataset": {"length": 16, "batch_size": 8},
+        "dataset": {"length": 16, "batch_size": 8,
+                    "transformer": {"image_size": 32, "resize_size": 36}},
         "model": {"num_classes": 4, "load": None,
                   "base_model": {"backbone": "vgg11", "num_classes": 4}},
         "train": {"epoch": 10, "optimizer": {"name": "SGD", "lr": 1.0,
@@ -84,7 +86,7 @@ def test_peer_learning_stage2_step_matches_jax_example(tmp_path):
     np.testing.assert_array_equal(pt.rate_schedule, jt.rate_schedule)
     jt.epoch = pt.epoch = 3  # a drop rate inside the ramp, 0.0833
     assert 0 < pt.rate_schedule[3] < float(pt.config.model.drop_rate)
-    batch = _batch(1, n=8)
+    batch = _batch(1, n=8, size=32)
     assert pt.prepare_batch(batch, train=True)["drop_rate"] == float(
         pt.rate_schedule[3])
     assert "drop_rate" not in pt.prepare_batch(batch, train=False)

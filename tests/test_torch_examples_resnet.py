@@ -1,8 +1,8 @@
-"""The port's MPN and Pairwise Confusion Example trainers against the JAX
-package's Examples/MPN.py and Examples/PairConfusion.py on the CPU: one
-step of each pair on the same synthetic host batch from bridged weights,
-resnet18 trunks at 96x96 (MPN: ``dimension_reduction`` 16, a 3x3 ``c5``
-map), batch 8. The tolerances of test_torch_examples.py.
+"""The port's Pairwise Confusion Example trainer against the JAX package's
+Examples/PairConfusion.py on the CPU: one step of each on the same
+synthetic host batch from bridged weights, resnet18 trunks at 96x96, batch
+8. The tolerances of test_torch_examples.py. ``_pair`` builds such a pair
+for test_torch_examples_mpn.py too.
 
 The trunks run in float64 on both sides (MPN's head is float32 in both
 packages whatever the trunk's dtype), as in test_torch_slice_resnet.py:
@@ -10,9 +10,7 @@ in float32 a train-mode step of these trunks moves a weight's gradient by
 ~1e-2 between two right implementations. Both step with SGD in place of
 the recipes' Adam (see test_torch_examples.py; their float32 heads leave
 ~1e-10 of rounding in a gradient, which Adam's first step turns into ~1%
-of the LR where a gradient is near its eps, 1e-8); for MPN that also shows
-its parameter groups in the updates: the backbone moves at 0.2x the LR of
-the reduction, its BatchNorm and the classifier."""
+of the LR where a gradient is near its eps, 1e-8)."""
 
 import os
 import sys
@@ -25,41 +23,22 @@ import hawkeye_tpu.models  # noqa: F401
 import hawkeye_tpu_torch.models  # noqa: F401
 from hawkeye_tpu.config import setup_config as jax_setup_config
 from hawkeye_tpu.models.methods.baseline import BaselineClassifier as JaxBaseline
-from hawkeye_tpu.models.methods.mpn import MPN as JaxMPN
 from hawkeye_tpu_torch.config import setup_config
-from hawkeye_tpu_torch.examples.MPN import MPNTrainer
 from hawkeye_tpu_torch.examples.PairConfusion import PairConfusionTrainer
 from hawkeye_tpu_torch.losses.pair_confusion import PairwiseConfusionLoss
 from hawkeye_tpu_torch.models import load_jax_variables
 from hawkeye_tpu_torch.models.methods.baseline import BaselineClassifier
-from hawkeye_tpu_torch.models.methods.mpn import MPN
-from test_torch_examples import _batch, one_step
+from test_torch_examples import JitInit, _batch, one_step
 from test_torch_trainer import _tiny_recipe_path
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from Examples.MPN import MPNTrainer as JaxMPNTrainer  # noqa: E402
 from Examples.PairConfusion import PairConfusionTrainer as JaxPCTrainer  # noqa: E402
 
 SIZE = {"dataset": {"length": 16, "batch_size": 8,
                     "transformer": {"image_size": 96, "resize_size": 110}}}
 
 
-class JaxF64MPNTrainer(JaxMPNTrainer):
-    def get_model(self, model_config):
-        return JaxMPN(num_classes=4, backbone_name="resnet18",
-                      dimension_reduction=16, dtype=jnp.float64)
-
-
-class PortF64MPNTrainer(MPNTrainer):
-    def get_model(self, model_config):
-        model = MPN(num_classes=4, backbone_name="resnet18",
-                    dimension_reduction=16, dtype=torch.float64)
-        model.backbone.to(torch.float64)  # the float32 head reads float32
-        model.dr_bn.to(torch.float64)
-        return model
-
-
-class JaxF64PCTrainer(JaxPCTrainer):
+class JaxF64PCTrainer(JitInit, JaxPCTrainer):
     def get_model(self, model_config):
         return JaxBaseline(backbone_name="resnet18", num_classes=4,
                            dtype=jnp.float64)
@@ -80,24 +59,6 @@ def _pair(tmp_path, jax_cls, port_cls, recipe, overrides):
     pt = port_cls(setup_config(argv=["--config", path]), device="cpu")
     load_jax_variables(pt.model, variables)
     return jt, pt
-
-
-def test_mpn_step_and_param_groups_match_jax_example(tmp_path):
-    jt, pt = _pair(tmp_path, JaxF64MPNTrainer, PortF64MPNTrainer, "MPN.yaml", {
-        "model": {"num_classes": 4},
-        "train": {"optimizer": {"name": "SGD", "lr": 0.05, "momentum": 0.9}}})
-    groups = {g["label"]: g for g in pt.optimizer.param_groups}
-    assert set(groups) == {"backbone", "head"}
-    assert groups["backbone"]["lr_mult"] == 0.2 and groups["head"]["lr_mult"] == 1.0
-    backbone = {id(p) for p in pt.model.backbone.parameters()}
-    assert {id(p) for p in groups["backbone"]["params"]} == backbone
-    head = [n for n, p in pt.model.named_parameters() if id(p) not in backbone]
-    assert sorted(head) == ["dr_bn.bias", "dr_bn.weight", "dr_conv.weight",
-                            "fc.bias", "fc.weight"]
-    assert len(groups["head"]["params"]) == len(head)
-    with jax.enable_x64(True):
-        one_step(jt, pt, _batch(2, n=8, size=96), lr=0.05)
-    assert groups["backbone"]["lr"] == 0.2 * 0.05 and groups["head"]["lr"] == 0.05
 
 
 def test_pair_confusion_step_matches_jax_example(tmp_path):

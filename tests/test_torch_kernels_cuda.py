@@ -32,14 +32,18 @@ def card():
 @pytest.mark.parametrize("shape", [(4, 16, 12, 72), (3, 6, 10, 5),
                                    (2, 448, 448, 64), (16, 224, 224, 64),
                                    (16, 112, 112, 128), (16, 56, 56, 256),
-                                   (16, 28, 28, 512), (16, 14, 14, 512)],
+                                   (16, 28, 28, 512), (16, 14, 14, 512),
+                                   (16, 448, 448, 64), (16, 224, 224, 128),
+                                   (16, 112, 112, 256), (16, 56, 56, 512)],
                          ids=["vector", "scalar", "vgg_block1", "vgg224_b16_1",
                               "vgg224_b16_2", "vgg224_b16_3", "vgg224_b16_4",
-                              "vgg224_b16_5"])
+                              "vgg224_b16_5", "vgg448_b16_1", "vgg448_b16_2",
+                              "vgg448_b16_3", "vgg448_b16_4"])
 def test_pool_kernels_bit_exact(card, dtype, shape):
     """The shapes: vector and scalar paths, VGG-16's first map at 448x448,
-    and its five pool inputs at 224x224, batch 16 (Peer-Learning, CBCNN
-    stage 1)."""
+    its five pool inputs at 224x224, batch 16 (Peer-Learning, CBCNN stage
+    1), and at 448x448, batch 16 (CBCNN stage 2; its fifth,
+    ``(16, 28, 28, 512)``, is the 224x224 path's fourth)."""
     x = (torch.round(torch.randn(shape, device="cuda", generator=card) * 2) / 2
          ).to(dtype)
     _build.reset_launches()

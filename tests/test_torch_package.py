@@ -24,6 +24,24 @@ def _port_files():
     return files
 
 
+def example_trainers():
+    """Example module name -> the Trainer class it defines, for every module
+    of hawkeye_tpu_torch/examples."""
+    import importlib
+    import pkgutil
+
+    from hawkeye_tpu_torch import examples
+    from hawkeye_tpu_torch.engine import Trainer
+
+    out = {}
+    for info in pkgutil.iter_modules(examples.__path__):
+        module = importlib.import_module(f"{examples.__name__}.{info.name}")
+        [out[info.name]] = [c for c in vars(module).values()
+                            if isinstance(c, type) and issubclass(c, Trainer)
+                            and c.__module__ == module.__name__]
+    return out
+
+
 def _imported_roots(path):
     with open(path) as f:
         tree = ast.parse(f.read(), path)
@@ -144,11 +162,8 @@ def test_recipe_builds_on_cpu_with_its_registered_names(name):
     """The recipe's model, criterion and Example trainer are registered
     under the names the JAX package uses, and the model builds from the
     recipe at full width on the CPU."""
-    import importlib
-
     import hawkeye_tpu_torch.models  # noqa: F401
     from hawkeye_tpu_torch import LOSS
-    from hawkeye_tpu_torch.examples import TRAINERS
     from hawkeye_tpu_torch.losses import build_criterion
 
     model_cls, loss_name, example, prefixes = RECIPES[name]
@@ -159,11 +174,7 @@ def test_recipe_builds_on_cpu_with_its_registered_names(name):
     assert all(p.device.type == "cpu" for p in model.parameters())
     crit = build_criterion(cfg.train.criterion)
     assert type(crit).__name__ == loss_name and LOSS.get(loss_name) is type(crit)
-    module = importlib.import_module(f"hawkeye_tpu_torch.examples.{example}")
-    trainer_cls = getattr(module, TRAINERS[example])
-    from hawkeye_tpu_torch.engine import Trainer
-
-    assert issubclass(trainer_cls, Trainer)
+    assert example in example_trainers()
     if cfg.model.name == "CBCNN":
         assert model.fc.in_features == int(cfg.model.output_channel) == 6000
         assert model.irdft_cos.shape == (3001, 3001)
@@ -173,16 +184,13 @@ def test_recipe_builds_on_cpu_with_its_registered_names(name):
 
 def test_example_entry_points_default_to_cuda_and_raise_without_it(
         tmp_path, monkeypatch):
-    import importlib
-
     from hawkeye_tpu_torch import train
-    from hawkeye_tpu_torch.examples import TRAINERS
 
+    trainers = example_trainers()
+    assert len(trainers) >= 6
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.chdir(tmp_path)
-    for example, cls in TRAINERS.items():
-        trainer_cls = getattr(importlib.import_module(
-            f"hawkeye_tpu_torch.examples.{example}"), cls)
+    for trainer_cls in trainers.values():
         with pytest.raises(RuntimeError, match="CUDA"):
             train.main(["--config", os.path.join(ROOT, "configs", "MPN.yaml")],
                        trainer_cls=trainer_cls)
