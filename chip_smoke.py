@@ -98,6 +98,33 @@ exits non-zero:
     ``pair_confusion_train_images_per_sec`` with peak memory, one line each.
     CBCNN's line also times its head's inverse transform both ways at the
     recipe's shape: the irDFT matmuls the port runs and ``torch.fft.irfft``.
+14. reference_pairs: OSME (ResNet-101, 64x64, batch 4), API-Net
+    (ResNet-101, 64x64, batch 6, dropout off: the two devices draw other
+    masks), CIN (ResNet-50, 64x64, batch 4), CrossX (64x64, batch 2) and
+    Interp-Parts (IP-ResNet-101, 96x96, batch 4, K = 5, soft assignments,
+    see ``_soften``) on the card against the CPU, one train-mode step
+    through each method's loss with BatchNorm scales and biases at random,
+    TF32 off: with the whole model in float64, logits and every gradient
+    within 1e-6 of the tensor's largest value and API-Net's mined partners
+    equal (``attconv_out``'s bias, 0 in exact arithmetic, below 1e-6 of the
+    largest gradient); in float32, logits within 1e-3 (Interp-Parts' 1e-2:
+    they come through a BatchNorm over the batch of 4); the float32
+    gradients are printed: BatchNorm at small batches makes them a reading
+    of rounding.
+15. slice_pairs: each recipe through its Example trainer at its recipe's
+    shape, synthetic data, 200 classes, four full train batches (a P x K
+    recipe draws its labels from P classes so that every batch is full):
+    OSME (``configs/OSMENet.yaml``, ResNet-101, 224x224, 5 x 2), API-Net
+    (``APINet.yaml``, ResNet-101, 224x224, 10 x 4, Adam), CIN
+    (``CIN.yaml``, ResNet-50, 224x224, 4 x 5), CrossX (``CrossX.yaml``,
+    448x448, batch 8) and Interp-Parts (``InterpPartsNet.yaml``,
+    IP-ResNet-101, 448x448, batch 16, its groups at 1x and 20x); then the
+    Tester on each best model (top-1 and logits equal to the Trainer's).
+    Finite losses; every kernel's launch count 0 in training and testing.
+16. throughput_pairs: ``osme_``, ``apinet_``, ``cin_``, ``crossx_`` and
+    ``interp_parts_train_images_per_sec`` as phase 13 times them, on
+    ``profile_step``'s trainer and batches at the recipes' shapes (P x K
+    labels; API-Net past its epoch-0 gate), no kernel launch.
 
 Then a ``kernels`` JSON line (pool kernels at batch 8; the Gram at batch
 128, where its 134 MB output cannot stay in the 50 MB L2 between replays;
@@ -541,11 +568,11 @@ def _train_rate(torch, trainer, model, batch, warmup=3, timed=10):
     the kernel launches per step and what the batches carry besides images
     and labels (Peer-Learning's drop rate)."""
     from hawkeye_tpu_torch.ops import LAUNCHES, reset_launches
-    from hawkeye_tpu_torch.profile_step import bench_batches
+    from hawkeye_tpu_torch.profile_step import bench_batches, bench_lr
 
     batches = bench_batches(model, batch, timed, seed=3)
     extra = {k: v for k, v in batches[0].items() if k not in ("img", "label")}
-    lr = float(trainer.config.train.optimizer.lr)
+    lr = bench_lr(trainer)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for i in range(warmup):
@@ -929,11 +956,11 @@ def _train_stage(torch, trainer_cls, config, run_dir, overrides, want=None,
                          seconds_with_val=seconds)
 
 
-def _emit_rate(torch, recipe, rate, want, **fields):
+def _emit_rate(torch, recipe, rate, want, phase="throughput_highorder", **fields):
     if rate["launches_per_step"] != want:
         raise AssertionError(f"{recipe}: launches per step "
                              f"{rate['launches_per_step']}, expected {want}")
-    emit("throughput_highorder", recipe=recipe,
+    emit(phase, recipe=recipe,
          **{f"{recipe}_train_images_per_sec": rate.pop("images_per_sec")},
          **rate, **fields, dtype="bfloat16 trunk, float32 head",
          device=torch.cuda.get_device_name(0), nvidia_smi=nvidia_smi_line())
@@ -1106,6 +1133,234 @@ def run_highorder(torch, run_dir, n_train=32):
     return total
 
 
+# ----------------------------------------------------------------------------
+# phases 14-16: the fourth slice, OSME + MAMC, API-Net, CIN, CrossX and
+# Interp-Parts through their Example trainers
+# ----------------------------------------------------------------------------
+# recipe -> (config, Example module, trainer class, input size, batch)
+PAIR_RECIPES = {"osme": ("OSMENet.yaml", "OSMENet", "OSMETrainer", 224, 10),
+                "apinet": ("APINet.yaml", "APINet", "APINetTrainer", 224, 40),
+                "cin": ("CIN.yaml", "CIN", "CINTrainer", 224, 20),
+                "crossx": ("CrossX.yaml", "CrossX", "CrossXTrainer", 448, 8),
+                "interp_parts": ("InterpPartsNet.yaml", "InterpPartsNet",
+                                 "InterpPartsTrainer", 448, 16)}
+# card against CPU, relative to each tensor's largest value: the whole model
+# in float64 (held), float32 logits (held; gradients printed). Interp-Parts'
+# float32 logits come through groupingbn, a BatchNorm over the batch of 4.
+PAIR_F64_TOL = 1e-6
+PAIR_F32_LOGITS_TOL = {"osme": 1e-3, "apinet": 1e-3, "cin": 1e-3, "crossx": 1e-3,
+                       "interp_parts": 1e-2}
+# gradients that are 0 in exact arithmetic (a bias right before a BatchNorm
+# over its one channel): held below 1e-6 of the model's largest gradient
+PAIR_ZERO_GRADS = {"interp_parts": ("attconv_out.bias",)}
+
+
+def _soften(torch, model):
+    """Soft Interp-Parts assignments: the last trunk block's BatchNorm
+    outputs at 0.05x and the part centres from N(0, 0.1^2). At the init's
+    scale the assignments are one-hot, and the shaping loss sits at the kink
+    of its absolute value, where rounding picks its gradient's sign."""
+    last = getattr(model.backbone, model.backbone.stage_names[-1][-1])
+    with torch.no_grad():
+        for bn in (last.bn3, last.downsample_bn if last.downsample else None):
+            if bn is not None:
+                bn.weight.mul_(0.05)
+                bn.bias.mul_(0.05)
+        model.grouping.weight.normal_(0.0, 0.1, generator=torch.Generator().manual_seed(3))
+
+
+def _pair_case(torch, name, dtype, dev):
+    """One train-mode forward and backward of ``name``'s model (small input,
+    the recipe's trunk and loss, BatchNorm scales and biases at random) on
+    ``dev``: (logits, {parameter: gradient}, extra outputs)."""
+    from hawkeye_tpu_torch.losses.apinet import APINetLoss
+    from hawkeye_tpu_torch.losses.cin import CINLoss
+    from hawkeye_tpu_torch.losses.crossx import CrossXLoss
+    from hawkeye_tpu_torch.losses.interp_parts import InterpPartsLoss
+    from hawkeye_tpu_torch.losses.mamc import MAMCLoss
+    from hawkeye_tpu_torch.models import init_parameters
+    from hawkeye_tpu_torch.models.backbones.norm import BatchNorm
+    from hawkeye_tpu_torch.models.methods import apinet, cin, crossx, interp_parts, osme
+
+    size, labels = 64, [3, 3, 7, 7]
+    if name == "osme":
+        m = osme.OSMENet(200, backbone_name="resnet101", image_size=size, dtype=dtype)
+        crit = MAMCLoss({"lambda_a": 0.5})
+    elif name == "apinet":  # dropout off: the two devices draw other masks
+        m = apinet.APINet(200, "resnet101", dropout_rate=0.0, dtype=dtype)
+        crit, labels = APINetLoss(), [1, 1, 5, 5, 9, 9]
+    elif name == "cin":
+        m = cin.CIN(200, "resnet50", image_size=size, dtype=dtype)
+        crit, labels = CINLoss({"alpha": 2.0, "beta": 0.5}), [2, 5, 2, 8]
+    elif name == "crossx":
+        m = crossx.CrossXNet(200, 2, dtype=dtype)
+        crit, labels = CrossXLoss({"num_parts": 2, "gamma": [0.5, 0.25, 0.5]}), [4, 9]
+    else:
+        m = interp_parts.InterpParts(200, 5, (3, 4, 23), dtype=dtype)
+        crit, labels, size = InterpPartsLoss({"radius": 2, "std": 0.4, "alpha": 1,
+                                              "beta": 0.001, "coeff": 0.5}), \
+            [0, 1, 2, 3], 96
+    gen = torch.Generator().manual_seed(11)
+    init_parameters(m, gen)
+    with torch.no_grad():
+        for mod in m.modules():
+            if isinstance(mod, BatchNorm):
+                mod.weight.copy_(1 + 0.3 * torch.randn(mod.weight.shape, generator=gen))
+                mod.bias.copy_(0.1 * torch.randn(mod.bias.shape, generator=gen))
+    if name == "interp_parts":
+        _soften(torch, m)
+    if dtype == torch.float64:
+        m.double()
+    m.to(dev).train()
+    y = torch.tensor(labels, device=dev)
+    x = torch.randn((len(labels), size, size, 3), generator=torch.Generator().manual_seed(12))
+    x = x.to(dev, dtype)
+    out = m(x, labels=y) if name == "apinet" else m(x)
+    crit(out, {"label": y}).backward()
+    grads = {n: p.grad.detach().double().cpu() for n, p in m.named_parameters()}
+    extra = {}
+    if name == "apinet":  # the mined partners, and how near their runners-up
+        with torch.no_grad():
+            pool = m.backbone(x)["c5"].mean(dim=(1, 2)).to(m.fc.weight.dtype)
+            intra, inter = apinet.mine_pairs(pool, y)
+            sq = (pool ** 2).sum(1)
+            d = (sq[:, None] + sq[None, :] - 2 * pool @ pool.T).double().cpu()
+        same = y.cpu()[:, None] == y.cpu()[None, :]
+        inter_d = d.masked_fill(same, float("inf")).sort(dim=1).values[:, :2]
+        # the smallest relative margin of a mined inter-class partner over
+        # the runner-up (the intra search has one candidate at K = 2)
+        extra = {"intra": intra.cpu(), "inter": inter.cpu(), "inter_gap": float(
+            ((inter_d[:, 1] - inter_d[:, 0]) / inter_d[:, 1]).min())}
+    return out["logits"].detach().double().cpu(), grads, extra
+
+
+def check_reference_pairs(torch):
+    """The five models on the card against the CPU, TF32 off."""
+    from hawkeye_tpu_torch.engine.trainer import set_tf32
+
+    set_tf32(False)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+    report = {}
+    for name in PAIR_RECIPES:
+        row = {}
+        for label, dtype in (("float64", torch.float64), ("float32", torch.float32)):
+            (lc, gc, ec), (lg, gg, eg) = (_pair_case(torch, name, dtype, dev)
+                                          for dev in ("cpu", "cuda"))
+            zero = PAIR_ZERO_GRADS.get(name, ())
+            errs = {n: rel(gg[n], gc[n]) for n in gc if n not in zero}
+            worst = max(errs, key=errs.get)
+            top = max(float(g.abs().max()) for g in (*gc.values(), *gg.values()))
+            row[label] = {"logits": rel(lg, lc), "grad_max": errs[worst],
+                          "grad_worst": worst,
+                          "zero_grads_of_max": max((float(g[n].abs().max()) / top
+                                                    for g in (gc, gg) for n in zero),
+                                                   default=0.0)}
+            if ec:
+                row[label]["pairs_equal"] = bool(torch.equal(ec["intra"], eg["intra"])
+                                                 and torch.equal(ec["inter"], eg["inter"]))
+                row[label]["inter_gap"] = ec["inter_gap"]
+        report[name] = row
+        f64 = row["float64"]
+        if (f64["logits"] > PAIR_F64_TOL or f64["grad_max"] > PAIR_F64_TOL
+                or f64["zero_grads_of_max"] > 1e-6
+                or row["float32"]["logits"] > PAIR_F32_LOGITS_TOL[name]
+                or not f64.get("pairs_equal", True)):
+            raise AssertionError(f"card vs CPU {name}: {row}")
+    emit("reference_pairs", model="OSME resnet101 64x64 b4, API-Net resnet101 "
+         "64x64 b6 (dropout off), CIN resnet50 64x64 b4, CrossX 64x64 b2, "
+         "IP-ResNet-101 96x96 b4 K=5 (soft assignments); one train-mode step "
+         "through each method's loss, BatchNorm at random; TF32 off",
+         rel_err_of_max=report, tolerances={"float64": PAIR_F64_TOL,
+                                            "float32_logits": PAIR_F32_LOGITS_TOL,
+                                            "zero_grads": PAIR_ZERO_GRADS})
+
+
+def _pair_overrides(name, run_dir, n_steps=4):
+    """Synthetic data for ``n_steps`` full train batches of the recipe at its
+    shapes: a P x K recipe draws its labels from P classes, each with ~4x
+    its K images, so that every batch is full (``bench_methods.py`` sizes
+    its set for the same reason)."""
+    config, _, _, size, batch = PAIR_RECIPES[name]
+    ds = {"name": "synthetic", "length": n_steps * batch, "num_workers": 8,
+          "num_classes": 200}
+    with open(os.path.join(ROOT, "configs", config)) as f:
+        import yaml
+
+        recipe = yaml.safe_load(f)["dataset"]
+    if "n_samples" in recipe:
+        ds["num_classes"] = int(recipe["n_classes"])
+    return {"experiment": {"log_dir": run_dir}, "dataset": ds,
+            "model": {"num_classes": 200}, "train": {"epoch": 1}}
+
+
+def run_pairs(torch, run_dir):
+    """slice_pairs and throughput_pairs: each of the five recipes through
+    its Example trainer at its recipe's shape, then the Tester on its best
+    model, then its train rate on ``profile_step``'s trainer. Every kernel's
+    launch count must stay 0 on these paths."""
+    import importlib
+
+    from hawkeye_tpu_torch.config import setup_config
+    from hawkeye_tpu_torch.engine import Tester
+    from hawkeye_tpu_torch.ops import LAUNCHES, reset_launches
+    from hawkeye_tpu_torch.profile_step import bench_trainer
+
+    zero = {"pool_fwd": 0, "pool_bwd": 0, "gram_signed_sqrt": 0}
+    for name, (config, module, cls, size, batch) in PAIR_RECIPES.items():
+        trainer_cls = getattr(importlib.import_module(
+            f"hawkeye_tpu_torch.examples.{module}"), cls)
+        over = _pair_overrides(name, run_dir)
+        tr, rep = _train_stage(torch, trainer_cls, config, run_dir, over, zero)
+        cfg = tr.config
+        sampler = tr.dataloaders["train"].batch_sampler
+        sizes = {len(b) for b in sampler}
+        if (int(cfg.dataset.transformer.image_size) != size or sizes != {batch}
+                or tr.step != len(sampler)):
+            raise AssertionError(f"{config}: image size "
+                                 f"{cfg.dataset.transformer.image_size}, batch sizes "
+                                 f"{sizes}, {tr.step} steps, not {size}px batch {batch}")
+        fields = {}
+        if name == "interp_parts":
+            groups = {g["label"]: g["lr"] for g in tr.optimizer.param_groups}
+            if abs(groups["scratch"] / groups["finetune"] - 20.0) > 1e-9:
+                raise AssertionError(f"Interp-Parts group LRs {groups}")
+            fields["group_lrs"] = groups
+        best = os.path.join(tr.log_root, "best_model.msgpack")  # the recipe's name
+        val = tr.prepare_batch(next(iter(tr.dataloaders["val"])), train=False)
+        with torch.no_grad():
+            logits = tr.model.eval()(val["img"])["logits"]
+        n_val = len(tr.datasets["val"])
+        del tr
+        torch.cuda.empty_cache()
+        reset_launches()
+        tester = Tester(setup_config(argv=["--config", _recipe(config, run_dir, {
+            "experiment": {"log_dir": run_dir},
+            "dataset": dict(over["dataset"], length=n_val),
+            "model": {"num_classes": 200, "load": best}})]))
+        top1 = tester.test()
+        with torch.no_grad():
+            same = torch.equal(tester.model(val["img"])["logits"], logits)
+        torch.cuda.synchronize()
+        if not same or top1 != rep["val_acc"] or dict(LAUNCHES) != zero:
+            raise AssertionError(f"{config} Tester: logits equal {same}, top-1 "
+                                 f"{top1} vs the Trainer's {rep['val_acc']}, "
+                                 f"launches {dict(LAUNCHES)}")
+        del tester, val, logits
+        torch.cuda.empty_cache()
+        emit("slice_pairs", recipe=name, config=config, batch=batch, image_size=size,
+             tester_top1=top1, tester_logits_equal_trainer=same,
+             tester_launches=zero, **fields, **rep)
+
+        trainer = bench_trainer(name, run_dir, batch)
+        r = _train_rate(torch, trainer, name, batch)
+        del trainer
+        torch.cuda.empty_cache()
+        _emit_rate(torch, name, r, {k: 0.0 for k in zero}, phase="throughput_pairs")
+
+
 def main():
     import torch
 
@@ -1161,6 +1416,8 @@ def main():
         check_reference_highorder(torch)
         for k, v in run_highorder(torch, run_dir).items():
             launches[k] += v
+        check_reference_pairs(torch)
+        run_pairs(torch, run_dir)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
 

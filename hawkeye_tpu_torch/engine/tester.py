@@ -20,8 +20,7 @@ from ..config import setup_config
 from ..data import DataLoader, FGDataset, SequentialBatchSampler, SyntheticDataset
 from ..data.transforms_device import make_eval_transform
 from ..data.transforms_host import EvalPreset
-from ..models import init_parameters
-from ..registry import MODEL
+from ..models import build_model, init_parameters
 from ..utils import Timer, get_logger, resolve_device
 from . import checkpoint as ckpt
 from .trainer import set_tf32
@@ -86,7 +85,7 @@ class Tester:
         )
 
     def get_model(self, model_config):
-        return MODEL.get(model_config.name)(model_config)
+        return build_model(model_config, self.config.dataset.transformer.image_size)
 
     def prepare_batch(self, batch):
         """Host numpy batch -> image and label tensors on the device."""

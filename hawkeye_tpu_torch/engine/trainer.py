@@ -64,8 +64,7 @@ from ..data import (
 )
 from ..data.transforms_device import make_eval_transform, make_train_augment
 from ..losses import build_criterion
-from ..models import init_parameters
-from ..registry import MODEL
+from ..models import build_model, init_parameters
 from ..utils import (
     AverageMeter,
     PerformanceMeter,
@@ -280,7 +279,7 @@ class Trainer:
         }
 
     def get_model(self, model_config):
-        return MODEL.get(model_config.name)(model_config)
+        return build_model(model_config, self.config.dataset.transformer.image_size)
 
     def get_criterion(self, criterion_config):
         return build_criterion(criterion_config)

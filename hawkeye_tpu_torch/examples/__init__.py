@@ -4,6 +4,7 @@
     python -m hawkeye_tpu_torch.examples.<Name> --config configs/<X>.yaml [--device cpu]
 
 on the CUDA device unless ``--device cpu`` is given. Ported so far:
-Baseline, BCNN, CBCNN, MPN, PairConfusion and PeerLearning.
+Baseline, BCNN, CBCNN, MPN, PairConfusion, PeerLearning, OSMENet, APINet,
+CIN, CrossX and InterpPartsNet.
 """
 

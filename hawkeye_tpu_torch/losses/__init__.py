@@ -5,8 +5,9 @@ Counterpart of ``hawkeye_tpu/losses/__init__.py``. Criterion contract:
 holds at least 'logits' and ``batch`` has 'label' (int [B]) or soft 'label'
 [B, C], and optionally a per-sample 'weight' [B]. The reference's default is
 ``CrossEntropyLoss(label_smoothing=0.1)`` (``train.py:211-212``). Ported so
-far: the cross-entropy, ``PairwiseConfusionLoss`` and ``PeerLearningLoss``;
-the other method losses wait.
+far: the cross-entropy, ``PairwiseConfusionLoss``, ``PeerLearningLoss``,
+``MAMCLoss``, ``APINetLoss``, ``CINLoss``, ``CrossXLoss`` and
+``InterpPartsLoss``; DCL's, NTS-Net's and ProtoTree's wait.
 """
 
 from __future__ import annotations
@@ -17,20 +18,26 @@ import torch.nn.functional as F
 from ..registry import LOSS
 
 
+def at_least_f32(t):
+    """``t`` in float32, or in float64 where it is float64 (a model cast to
+    float64 is its own reference)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def cross_entropy(logits, labels, label_smoothing=0.0, weights=None):
     """CE over int or soft labels; ``weights`` [B] masks samples out."""
-    logits = logits.float()
+    logits = at_least_f32(logits)
     c = logits.shape[-1]
     if labels.dim() == logits.dim():  # soft labels (mixup/cutmix)
-        target = labels.float()
+        target = labels.to(logits.dtype)
     else:
-        target = F.one_hot(labels.long(), c).float()
+        target = F.one_hot(labels.long(), c).to(logits.dtype)
     if label_smoothing:
         target = target * (1.0 - label_smoothing) + label_smoothing / c
     losses = -(target * F.log_softmax(logits, dim=-1)).sum(dim=-1)
     if weights is None:
         return losses.mean()
-    w = weights.float()
+    w = weights.to(logits.dtype)
     return (losses * w).sum() / torch.clamp_min(w.sum(), 1.0)
 
 
@@ -52,8 +59,15 @@ LOSS.register(CrossEntropyLoss, name="CrossEntropyLoss")
 
 def build_criterion(criterion_config):
     # late imports: loss modules register themselves on import
-    from . import pair_confusion  # noqa: F401
-    from . import peer_learning  # noqa: F401
+    from . import (  # noqa: F401
+        apinet,
+        cin,
+        crossx,
+        interp_parts,
+        mamc,
+        pair_confusion,
+        peer_learning,
+    )
 
     if criterion_config is None or "name" not in criterion_config:
         return CrossEntropyLoss()

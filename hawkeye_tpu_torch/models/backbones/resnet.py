@@ -127,8 +127,19 @@ class ResNet(nn.Module):
             self.stage_names.append(names)
             filters *= 2
         self.out_channels = c_in
+        self.strides = tuple(strides[:len(stage_sizes)])
         self.fc = (nn.Linear(c_in, num_classes, dtype=torch.float32)
                    if num_classes > 0 else None)
+
+    def feature_size(self, image_size):
+        """Side of the last stage's map for a square input of ``image_size``
+        pixels: the 7x7/2 stem conv and the 3x3/2 max pool (padding 3 and
+        1), then each stage's stride (its 3x3 conv has padding 1)."""
+        s = (int(image_size) - 1) // 2 + 1
+        s = (s - 1) // 2 + 1
+        for stride in self.strides:
+            s = (s - 1) // stride + 1
+        return s
 
     def forward(self, x):
         # NHWC in; the NCHW view of channels-last memory is what cuDNN takes

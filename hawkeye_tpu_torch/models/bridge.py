@@ -8,21 +8,23 @@ can compare parameters and statistics after an update.
 
 Name map, built from the module itself: a module path keeps its segments,
 except that inside a VGG trunk ``features.N`` is flax's ``convN`` (the
-torchvision index, for ``nn.Conv`` and the ``_Conv3x3Params`` twin alike;
-in a nested model such as Peer-Learning's ``base_model``/``base_model2``
+torchvision index; in a nested model such as Peer-Learning's ``base_model``/``base_model2``
 the rewrite applies inside each of its VGG trunks);
 ResNet's ``conv1``/``layer1_0``/... are flax's names as they are. Leaves:
-a conv or dense ``weight`` is ``kernel``; a BatchNorm ``weight`` is
-``scale``, its ``running_mean``/``running_var`` are
-``batch_stats/.../{mean,var}``; ``bias`` stays. Layouts: conv kernel HWIO
-<-> weight OIHW, dense kernel [in, out] <-> weight [out, in]; the rest as
-they are.
+the ``weight`` of an ``nn.Conv2d`` or ``nn.Linear`` is ``kernel``; a
+BatchNorm ``weight`` is ``scale``, its ``running_mean``/``running_var`` are
+``batch_stats/.../{mean,var}``; ``bias`` stays. A raw ``nn.Parameter`` of a
+module keeps its flax name and layout (Interp-Parts' ``grouping.weight``,
+the ``[K, C]`` part centres, is flax's ``grouping/weight``). Layouts: conv
+kernel HWIO <-> weight OIHW, dense kernel [in, out] <-> weight [out, in];
+the rest as they are.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from .backbones.norm import BatchNorm
 from .backbones.vgg import VGG
@@ -55,8 +57,10 @@ def _flax_key(module, name):
             i += 1
     if isinstance(m, BatchNorm):
         collection, leaf = _BN_LEAVES[leaf]
+    elif isinstance(m, (nn.Conv2d, nn.Linear)) and leaf == "weight":
+        collection, leaf = "params", "kernel"
     else:
-        collection, leaf = "params", {"weight": "kernel"}.get(leaf, leaf)
+        collection = "params"
     return collection, tuple(path) + (leaf,)
 
 

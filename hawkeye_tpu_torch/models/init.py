@@ -3,7 +3,8 @@
 Matches the JAX package's flax defaults in distribution (not in bits):
 conv and dense kernels are LeCun-normal (variance 1/fan_in, normal truncated
 at two standard deviations), biases zero; BatchNorm scale 1, bias 0,
-running mean 0 and running variance 1.
+running mean 0 and running variance 1. A module with an
+``init_own_parameters(generator)`` method sets its own after that.
 """
 
 from __future__ import annotations
@@ -34,4 +35,9 @@ def init_parameters(module: nn.Module, generator: torch.Generator):
             m.bias.zero_()
             m.running_mean.zero_()
             m.running_var.fill_(1.0)
+    # then the modules' own rules: raw parameters (Interp-Parts' part
+    # centres) and inits that differ from the defaults (a zero-scale bn3)
+    for m in module.modules():
+        if hasattr(m, "init_own_parameters"):
+            m.init_own_parameters(generator)
     return module

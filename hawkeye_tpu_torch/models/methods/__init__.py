@@ -1,1 +1,12 @@
-from . import baseline, bcnn, cbcnn, mpn, peer_learning  # noqa: F401  (MODEL registrations)
+from . import (  # noqa: F401  (MODEL registrations)
+    apinet,
+    baseline,
+    bcnn,
+    cbcnn,
+    cin,
+    crossx,
+    interp_parts,
+    mpn,
+    osme,
+    peer_learning,
+)

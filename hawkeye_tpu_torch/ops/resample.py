@@ -12,16 +12,18 @@ kernel, and so does the port:
   contracts the columns: JAX's order.
 - ``grid_sample_bilinear``: general bilinear grid sampling by a 4-tap gather
   from a zero-padded copy, for the per-image affine warps of TA-wide.
+- ``resize_nearest``: nearest-neighbour resize by a gather of rows and
+  columns (CrossX's cross-layer fusion).
 
 Coordinates follow ``align_corners=False`` (torchvision / ``F.interpolate``
 default) unless asked otherwise. Images are NHWC.
 
-Not ported yet: ``crop_resize_multibox`` (NTS-Net, APCNN) and
-``resize_nearest`` (CrossX).
+Not ported yet: ``crop_resize_multibox`` (NTS-Net, APCNN).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..utils.tensors import device_constant
@@ -129,3 +131,26 @@ def grid_sample_bilinear(images, grid):
     bot = tap(1, 0) * (1 - wx1) + tap(1, 1) * wx1
     out = (top * (1 - wy1) + bot * wy1) * ok
     return out.reshape(b, *out_sp, c)
+
+
+def nearest_index(in_size: int, out_size: int) -> np.ndarray:
+    """Source rows of a nearest resize, ``floor(dst * in/out)``, computed as
+    the JAX package computes them: an int32 ``arange`` times the Python float
+    ``in/out``, which JAX takes as float32. In float64 the index differs at
+    some sizes (2 -> 82, 3 -> 123); ``F.interpolate`` is not used for the
+    same reason."""
+    src = np.arange(out_size, dtype=np.float32) * np.float32(in_size / out_size)
+    return np.floor(src).astype(np.int64)
+
+
+def resize_nearest(images, out_h: int, out_w: int):
+    """Nearest-neighbour resize of NHWC ``images`` to (out_h, out_w), the
+    counterpart of the JAX package's ``resize_nearest``
+    (``F.interpolate(mode='nearest')``'s rule): a gather of rows, then of
+    columns, with the indices made on the host once per shape."""
+    _, h, w, _ = images.shape
+    iy = device_constant(tuple(nearest_index(h, out_h).tolist()), torch.long,
+                         images.device)
+    ix = device_constant(tuple(nearest_index(w, out_w).tolist()), torch.long,
+                         images.device)
+    return images.index_select(1, iy).index_select(2, ix)

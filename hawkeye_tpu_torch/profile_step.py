@@ -1,7 +1,8 @@
 """Where a train step spends its device time.
 
     python -m hawkeye_tpu_torch.profile_step
-        [--model bcnn|resnet50|cbcnn|mpn|peer_learning|pair_confusion]
+        [--model bcnn|resnet50|cbcnn|mpn|peer_learning|pair_confusion|
+                 osme|apinet|cin|crossx|interp_parts]
         [--batch 8,128] [--steps 5]
 
 ``--model bcnn`` (the default) builds the port's Trainer from
@@ -19,7 +20,15 @@ d = 6000), ``mpn`` from ``configs/MPN.yaml`` (ResNet-50, 224x224),
 ``peer_learning`` from ``configs/PeerLearning_BCNN_S2.yaml`` (two BCNN
 VGG-16 peers, 224x224, ``fused_pooling: true``, drop rate 0.25) and
 ``pair_confusion`` from ``configs/PC_resnet50.yaml`` (Baseline ResNet-50,
-224x224). Random weights, synthetic data, on the CUDA device.
+224x224), ``osme`` from ``configs/OSMENet.yaml`` (ResNet-101, 224x224),
+``apinet`` from ``configs/APINet.yaml`` (ResNet-101, 224x224, a step past
+epoch 0, whose gate zeroes the backbone's gradients), ``cin`` from
+``configs/CIN.yaml`` (ResNet-50, 224x224), ``crossx`` from
+``configs/CrossX.yaml`` (448x448) and ``interp_parts`` from
+``configs/InterpPartsNet.yaml`` (IP-ResNet-101, K = 5, 448x448). The P x K
+recipes (OSME, API-Net, CIN) take ``--batch`` as P x K with the recipe's K
+(``dataset.n_samples``), and their labels come as P random classes K
+times each. Random weights, synthetic data, on the CUDA device.
 
 For each batch size it times ``--steps`` train steps with a sync at each
 end, then profiles the same number of steps with ``torch.profiler``. Prints
@@ -70,7 +79,22 @@ _RECIPES = {"cbcnn": ("CBCNN_S2.yaml", "CBCNN", "CBCNNTrainer", 448),
             "peer_learning": ("PeerLearning_BCNN_S2.yaml", "PeerLearning",
                               "PLTrainer", 224),
             "pair_confusion": ("PC_resnet50.yaml", "PairConfusion",
-                               "PairConfusionTrainer", 224)}
+                               "PairConfusionTrainer", 224),
+            "osme": ("OSMENet.yaml", "OSMENet", "OSMETrainer", 224),
+            "apinet": ("APINet.yaml", "APINet", "APINetTrainer", 224),
+            "cin": ("CIN.yaml", "CIN", "CINTrainer", 224),
+            "crossx": ("CrossX.yaml", "CrossX", "CrossXTrainer", 448),
+            "interp_parts": ("InterpPartsNet.yaml", "InterpPartsNet",
+                             "InterpPartsTrainer", 448)}
+
+
+def recipe_n_samples(model):
+    """K of a P x K recipe (``dataset.n_samples``), else None."""
+    if model not in _RECIPES:
+        return None
+    cfg = load_yaml_config(os.path.join(ROOT, "configs", _RECIPES[model][0]))
+    k = cfg.dataset.get("n_samples")
+    return None if k is None else int(k)
 
 
 def _category(name: str) -> str:
@@ -121,7 +145,10 @@ def bench_trainer(model, run_dir, batch, device=None):
         trainer_cls = getattr(importlib.import_module(
             f"{__package__}.examples.{module}"), cls)
         cfg = load_yaml_config(os.path.join(ROOT, "configs", recipe)).to_dict()
+        k = recipe_n_samples(model)
         cfg["dataset"] = {"transformer": cfg["dataset"]["transformer"]}
+        if k is not None:  # P x K with the recipe's K
+            cfg["dataset"].update(n_classes=batch // k, n_samples=k)
         cfg["model"].update(load=None)
         if model == "peer_learning":
             cfg["model"]["base_model"].update(fused_pooling=True)
@@ -142,16 +169,27 @@ def bench_trainer(model, run_dir, batch, device=None):
         # bench.py's augmentation: crop with the flip, normalize, erase 0.1,
         # bfloat16 out (the trunk computes in bfloat16 anyway)
         trainer.device_augment = make_train_augment(448, out_dtype=torch.bfloat16)
+    if model == "apinet":
+        trainer.epoch = 1  # past the epoch-0 gate, as 99 of its 100 epochs
     return trainer
+
+
+def bench_lr(trainer):
+    """The rate of the recipe's first train step: its scheduler's rate at
+    the trainer's epoch (a warm-up's start included), through the per-batch
+    hook. From random weights some recipes diverge at their base rate
+    (OSME's 0.04 without its warm-up)."""
+    return trainer.batch_lr(trainer.scheduler.epoch_lr(trainer.epoch))
 
 
 def bench_batches(model, batch, n, seed=0, device="cuda"):
     """``n`` device-resident batches, each its own: float images for BCNN
     and the Example trainers' models, the device pipeline's uint8 decodes
-    for ResNet-50."""
+    for ResNet-50; P x K labels for the balanced recipes."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     size = _RECIPES[model][3] if model in _RECIPES else 448
+    k = recipe_n_samples(model)
     out = []
     for _ in range(n):
         if model == "resnet50":
@@ -159,8 +197,12 @@ def bench_batches(model, batch, n, seed=0, device="cuda"):
                                 dtype=torch.uint8, generator=gen)
         else:
             img = torch.randn((batch, size, size, 3), device=device, generator=gen)
-        out.append({"img": img, "label": torch.randint(
-            0, 200, (batch,), device=device, generator=gen)})
+        if k is None:
+            label = torch.randint(0, 200, (batch,), device=device, generator=gen)
+        else:  # P classes, K images each, as the balanced sampler gives
+            label = torch.randperm(200, device=device, generator=gen)[
+                :batch // k].repeat_interleave(k)
+        out.append({"img": img, "label": label})
         if model == "peer_learning":
             out[-1]["drop_rate"] = 0.25
     return out
@@ -177,7 +219,7 @@ def profile_batch(model, batch, steps, run_dir):
 
         trainer.device_augment = annotated
     batches = bench_batches(model, batch, steps)
-    lr = float(trainer.config.train.optimizer.lr)
+    lr = bench_lr(trainer)
     for b in batches[:3]:
         trainer.train_step_call(b, lr)
     torch.cuda.synchronize()

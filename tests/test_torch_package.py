@@ -36,9 +36,13 @@ def example_trainers():
     out = {}
     for info in pkgutil.iter_modules(examples.__path__):
         module = importlib.import_module(f"{examples.__name__}.{info.name}")
-        [out[info.name]] = [c for c in vars(module).values()
-                            if isinstance(c, type) and issubclass(c, Trainer)
-                            and c.__module__ == module.__name__]
+        own = [c for c in vars(module).values()
+               if isinstance(c, type) and issubclass(c, Trainer)
+               and c.__module__ == module.__name__]
+        # a module may define a base beside its trainer (OSMENet's
+        # BalancedSamplerTrainer): the trainer is the one no other extends
+        [out[info.name]] = [c for c in own
+                            if not any(o is not c and issubclass(o, c) for o in own)]
     return out
 
 
@@ -105,7 +109,9 @@ def test_tester_and_test_entry_default_to_cuda_and_raise_without_it(
                                   "Baseline_synthetic.yaml", "test.yaml",
                                   "CBCNN_S1.yaml", "CBCNN_S2.yaml", "MPN.yaml",
                                   "PeerLearning_BCNN_S1.yaml",
-                                  "PeerLearning_BCNN_S2.yaml", "PC_resnet50.yaml"])
+                                  "PeerLearning_BCNN_S2.yaml", "PC_resnet50.yaml",
+                                  "OSMENet.yaml", "APINet.yaml", "CIN.yaml",
+                                  "CrossX.yaml", "InterpPartsNet.yaml"])
 def test_config_copy_reads_recipes_like_jax(name):
     path = os.path.join(ROOT, "configs", name)
     port = setup_config(argv=["--config", path])
@@ -154,6 +160,21 @@ RECIPES = {
                                   "PeerLearning", {"base_model", "base_model2"}),
     "PC_resnet50.yaml": ("BaselineClassifier", "PairwiseConfusionLoss",
                          "PairConfusion", {"backbone", "fc"}),
+    "OSMENet.yaml": ("OSMENet", "MAMCLoss", "OSMENet",
+                     {"backbone", "osme_0", "osme_1", "part_fc_0", "part_fc_1", "fc"}),
+    "APINet.yaml": ("APINet", "APINetLoss", "APINet",
+                    {"backbone", "map1", "map2", "fc"}),
+    "CIN.yaml": ("CIN", "CINLoss", "CIN",
+                 {"backbone", "conv", "gate_fc", "classifier", "pair_head"}),
+    "CrossX.yaml": ("CrossXNet", "CrossXLoss", "CrossX",
+                    {"conv1", "bn1", "conv2_0", "conv2_1", "conv3_0", "conv3_1",
+                     "bn3_0", "bn3_1", "fc_plty", "fc_ulti", "fc_cmbn"}
+                    | {f"layer{i}_{j}" for i, n in enumerate((3, 4, 6, 3), 1)
+                       for j in range(n)}),
+    "InterpPartsNet.yaml": ("InterpParts", "InterpPartsLoss", "InterpPartsNet",
+                            {"backbone", "grouping", "attconv_0", "attconv_1",
+                             "attconv_out", "attconv_bn", "post_0", "post_1",
+                             "post_2", "post_3", "groupingbn", "mylinear"}),
 }
 
 
@@ -162,13 +183,13 @@ def test_recipe_builds_on_cpu_with_its_registered_names(name):
     """The recipe's model, criterion and Example trainer are registered
     under the names the JAX package uses, and the model builds from the
     recipe at full width on the CPU."""
-    import hawkeye_tpu_torch.models  # noqa: F401
     from hawkeye_tpu_torch import LOSS
     from hawkeye_tpu_torch.losses import build_criterion
+    from hawkeye_tpu_torch.models import build_model
 
     model_cls, loss_name, example, prefixes = RECIPES[name]
     cfg = setup_config(argv=["--config", os.path.join(ROOT, "configs", name)])
-    model = MODEL.get(cfg.model.name)(cfg.model)
+    model = build_model(cfg.model, cfg.dataset.transformer.image_size)
     assert type(model).__name__ == model_cls
     assert {n.split(".")[0] for n, _ in model.named_parameters()} == prefixes
     assert all(p.device.type == "cpu" for p in model.parameters())
@@ -180,6 +201,15 @@ def test_recipe_builds_on_cpu_with_its_registered_names(name):
         assert model.irdft_cos.shape == (3001, 3001)
     if cfg.model.name == "PeerLearningNet":
         assert int(model.base_model.stage) == int(cfg.model.base_model.stage)
+    if cfg.model.name == "OSMENet":  # ResNet-101's 7x7x2048 c5 at 224x224
+        assert model.part_fc_0.weight.shape == (1024, 7 * 7 * 2048)
+        assert len(model.backbone.stage_names[2]) == 23
+    if cfg.model.name == "CIN":
+        assert model.gate_fc.in_features == 2 * 7 * 7 * 2048
+        assert model.pair_head.weight.shape == (512, 7 * 7 * 2048)
+    if cfg.model.name == "IP_ResNet101":
+        assert [len(n) for n in model.backbone.stage_names] == [3, 4, 23]
+        assert model.grouping.weight.shape == (int(cfg.model.num_parts), 1024)
 
 
 def test_example_entry_points_default_to_cuda_and_raise_without_it(
