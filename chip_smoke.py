@@ -125,6 +125,35 @@ exits non-zero:
     ``interp_parts_train_images_per_sec`` as phase 13 times them, on
     ``profile_step``'s trainer and batches at the recipes' shapes (P x K
     labels; API-Net past its epoch-0 gate), no kernel launch.
+17. reference_tree_dcl: ProtoTree (ResNet-50, 64x64, batch 4, height 9,
+    D = 256; prototypes near the batch's features and leaves at random, so
+    that the walks turn both ways) and DCL
+    (ResNet-50, 128x128: a 2x2 mask and a 4-cell law; 2 images, 4 rows of
+    its host collate) on the card against the CPU, one train-mode step
+    through each method's loss, BatchNorm scales and biases at random,
+    TF32 off: with the whole model in float64, logits and every gradient
+    within 1e-6 of the tensor's largest value, ProtoTree's leaf update
+    within 1e-10 and its sample_max and greedy leaves (of a train-mode
+    forward) identical; in
+    float32, logits within 1e-3 (gradients printed).
+18. slice_tree_dcl: ProtoTree through its Example trainer at
+    ``configs/ProtoTreeNet.yaml``'s shape (ResNet-50, 224x224, batch 64,
+    height 9, D = 256, AdamW, warm-up cosine), synthetic data, 200
+    classes, ``model.backbone.pretrain`` at a ``.pth`` the phase writes
+    from a seeded torchvision-layout ResNet-50 state dict (the log must
+    show its tensors loaded), two epochs of two steps with
+    ``FREEZE_EPOCHS`` 1 (backbone unchanged in epoch 0, moved in epoch 1,
+    leaves moved in both), ``save_tree``/``load_tree`` logits equal; DCL at
+    ``configs/DCL.yaml``'s (ResNet-50, 448x448, batch 8 -> 16 rows, SGD,
+    the head at 10x the LR), four steps with the host pipeline, then with
+    ``dataset.pipeline: device``. After each, the Tester on the best model
+    (top-1 and logits equal to the Trainer's). Finite losses; every
+    kernel's launch count 0.
+19. throughput_tree_dcl: ``prototree_train_images_per_sec`` (batch 64,
+    224x224, epoch 0's step) and ``dcl_train_images_per_sec`` (batch 8 at
+    448x448; it counts the 16 rows ``[unswapped; swapped]`` the model sees,
+    as ``bench_methods.py`` counts DCL) as phase 13 times them, on
+    ``profile_step``'s trainer and batches, no kernel launch.
 
 Then a ``kernels`` JSON line (pool kernels at batch 8; the Gram at batch
 128, where its 134 MB output cannot stay in the 50 MB L2 between replays;
@@ -562,16 +591,18 @@ def run_slice(torch, run_dir):
 
 
 def _train_rate(torch, trainer, model, batch, warmup=3, timed=10):
-    """Train images per second of ``timed`` steps after ``warmup``, each on
-    its own device-resident batch from ``profile_step.bench_batches`` (the
-    batches ``profile_step --model <model>`` profiles), with the peak memory,
+    """Train images (rows the model sees) per second of ``timed`` steps
+    after ``warmup``, each on its own device-resident batch from
+    ``profile_step.bench_batches`` (the batches ``profile_step --model
+    <model>`` profiles), with the peak memory,
     the kernel launches per step and what the batches carry besides images
     and labels (Peer-Learning's drop rate)."""
     from hawkeye_tpu_torch.ops import LAUNCHES, reset_launches
     from hawkeye_tpu_torch.profile_step import bench_batches, bench_lr
 
     batches = bench_batches(model, batch, timed, seed=3)
-    extra = {k: v for k, v in batches[0].items() if k not in ("img", "label")}
+    extra = {k: v for k, v in batches[0].items() if not torch.is_tensor(v)}
+    rows = batches[0]["img"].shape[0]  # DCL's 2x batch: 2 x batch rows
     lr = bench_lr(trainer)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -587,8 +618,8 @@ def _train_rate(torch, trainer, model, batch, warmup=3, timed=10):
     loss = float(m["loss"])
     if not math.isfinite(loss):
         raise AssertionError(f"throughput step loss {loss}")
-    return dict(images_per_sec=batch * timed / dt, ms_per_step=dt / timed * 1e3,
-                batch=batch, image_size=batches[0]["img"].shape[1], **extra,
+    return dict(images_per_sec=rows * timed / dt, ms_per_step=dt / timed * 1e3,
+                batch=batch, rows=rows, image_size=batches[0]["img"].shape[1], **extra,
                 warmup_steps=warmup,
                 timed_steps=timed, last_loss=loss,
                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
@@ -927,10 +958,11 @@ def check_reference_highorder(torch):
 
 
 def _train_stage(torch, trainer_cls, config, run_dir, overrides, want=None,
-                 loads=None):
+                 loads=None, prepare=None):
     """One recipe stage through an Example trainer, launch counts set to 0
     before and read after; ``want`` the exact counts it must give, ``loads``
-    the state dict that ``model.load`` must have put in the model."""
+    the state dict that ``model.load`` must have put in the model,
+    ``prepare`` a function called with the trainer before it trains."""
     from hawkeye_tpu_torch.config import setup_config
     from hawkeye_tpu_torch.ops import LAUNCHES, reset_launches
 
@@ -941,6 +973,8 @@ def _train_stage(torch, trainer_cls, config, run_dir, overrides, want=None,
     if loads is not None and (own.keys() != loads.keys() or not all(
             torch.equal(own[k].cpu(), v) for k, v in loads.items())):
         raise AssertionError(f"{config}: model.load did not load stage 1's weights")
+    if prepare is not None:
+        prepare(trainer)
     t0 = time.time()
     trainer.train()
     torch.cuda.synchronize()
@@ -954,6 +988,42 @@ def _train_stage(torch, trainer_cls, config, run_dir, overrides, want=None,
         raise AssertionError(f"{config}: launches {launches}, expected {want}")
     return trainer, dict(rep, launches=launches, train_steps=trainer.step,
                          seconds_with_val=seconds)
+
+
+ZERO_LAUNCHES = {"pool_fwd": 0, "pool_bwd": 0, "gram_signed_sqrt": 0}
+
+
+def _tester_matches(torch, trainer, config, run_dir, over):
+    """The Tester on the trainer's best model and val split: its top-1 must
+    be the trainer's best val accuracy, and its logits on the first val
+    batch the trainer's model's with the best weights. Launches must stay
+    0."""
+    from hawkeye_tpu_torch.config import setup_config
+    from hawkeye_tpu_torch.engine import Tester
+    from hawkeye_tpu_torch.engine import checkpoint as ckpt
+    from hawkeye_tpu_torch.ops import LAUNCHES, reset_launches
+
+    best = os.path.join(trainer.log_root, "best_model.msgpack")  # the recipe's name
+    ckpt.load_model(best, trainer.model)
+    val_acc = trainer.performance_meters["val"]["acc"].best_value
+    val = trainer.prepare_batch(next(iter(trainer.dataloaders["val"])), train=False)
+    if trainer.pipeline == "device":
+        val = trainer.device_prepare_eval(val)
+    with torch.no_grad():
+        logits = trainer.model.eval()(val["img"])["logits"]
+    n_val = len(trainer.datasets["val"])
+    reset_launches()
+    tester = Tester(setup_config(argv=["--config", _recipe(config, run_dir, {
+        **over, "dataset": dict(over["dataset"], length=n_val),
+        "model": dict(over["model"], load=best)})]))
+    top1 = tester.test()
+    with torch.no_grad():
+        same = torch.equal(tester.model(val["img"])["logits"], logits)
+    torch.cuda.synchronize()
+    if not same or top1 != val_acc or dict(LAUNCHES) != ZERO_LAUNCHES:
+        raise AssertionError(f"{config} Tester: logits equal {same}, top-1 {top1} "
+                             f"vs the Trainer's {val_acc}, launches {dict(LAUNCHES)}")
+    return top1
 
 
 def _emit_rate(torch, recipe, rate, want, phase="throughput_highorder", **fields):
@@ -1303,17 +1373,13 @@ def run_pairs(torch, run_dir):
     launch count must stay 0 on these paths."""
     import importlib
 
-    from hawkeye_tpu_torch.config import setup_config
-    from hawkeye_tpu_torch.engine import Tester
-    from hawkeye_tpu_torch.ops import LAUNCHES, reset_launches
     from hawkeye_tpu_torch.profile_step import bench_trainer
 
-    zero = {"pool_fwd": 0, "pool_bwd": 0, "gram_signed_sqrt": 0}
     for name, (config, module, cls, size, batch) in PAIR_RECIPES.items():
         trainer_cls = getattr(importlib.import_module(
             f"hawkeye_tpu_torch.examples.{module}"), cls)
         over = _pair_overrides(name, run_dir)
-        tr, rep = _train_stage(torch, trainer_cls, config, run_dir, over, zero)
+        tr, rep = _train_stage(torch, trainer_cls, config, run_dir, over, ZERO_LAUNCHES)
         cfg = tr.config
         sampler = tr.dataloaders["train"].batch_sampler
         sizes = {len(b) for b in sampler}
@@ -1328,37 +1394,331 @@ def run_pairs(torch, run_dir):
             if abs(groups["scratch"] / groups["finetune"] - 20.0) > 1e-9:
                 raise AssertionError(f"Interp-Parts group LRs {groups}")
             fields["group_lrs"] = groups
-        best = os.path.join(tr.log_root, "best_model.msgpack")  # the recipe's name
-        val = tr.prepare_batch(next(iter(tr.dataloaders["val"])), train=False)
-        with torch.no_grad():
-            logits = tr.model.eval()(val["img"])["logits"]
-        n_val = len(tr.datasets["val"])
+        top1 = _tester_matches(torch, tr, config, run_dir, over)
         del tr
         torch.cuda.empty_cache()
-        reset_launches()
-        tester = Tester(setup_config(argv=["--config", _recipe(config, run_dir, {
-            "experiment": {"log_dir": run_dir},
-            "dataset": dict(over["dataset"], length=n_val),
-            "model": {"num_classes": 200, "load": best}})]))
-        top1 = tester.test()
-        with torch.no_grad():
-            same = torch.equal(tester.model(val["img"])["logits"], logits)
-        torch.cuda.synchronize()
-        if not same or top1 != rep["val_acc"] or dict(LAUNCHES) != zero:
-            raise AssertionError(f"{config} Tester: logits equal {same}, top-1 "
-                                 f"{top1} vs the Trainer's {rep['val_acc']}, "
-                                 f"launches {dict(LAUNCHES)}")
-        del tester, val, logits
-        torch.cuda.empty_cache()
         emit("slice_pairs", recipe=name, config=config, batch=batch, image_size=size,
-             tester_top1=top1, tester_logits_equal_trainer=same,
-             tester_launches=zero, **fields, **rep)
+             tester_top1=top1, tester_logits_equal_trainer=True,
+             tester_launches=ZERO_LAUNCHES, **fields, **rep)
 
         trainer = bench_trainer(name, run_dir, batch)
         r = _train_rate(torch, trainer, name, batch)
         del trainer
         torch.cuda.empty_cache()
-        _emit_rate(torch, name, r, {k: 0.0 for k in zero}, phase="throughput_pairs")
+        _emit_rate(torch, name, r, {k: 0.0 for k in ZERO_LAUNCHES},
+                   phase="throughput_pairs")
+
+
+# ----------------------------------------------------------------------------
+# phases 17-19: the fifth slice, ProtoTree and DCL through their Example
+# trainers
+# ----------------------------------------------------------------------------
+# card against CPU, relative to each tensor's largest value: the whole model
+# in float64 (logits and gradients; the leaf update absolutely), float32
+# logits (held; gradients printed)
+TREE_F64_TOL, TREE_LEAF_TOL, TREE_F32_LOGITS_TOL = 1e-6, 1e-10, 1e-3
+
+
+def _bn_at_random(torch, model, gen):
+    from hawkeye_tpu_torch.models.backbones.norm import BatchNorm
+
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, BatchNorm):
+                mod.weight.copy_(1 + 0.3 * torch.randn(mod.weight.shape, generator=gen))
+                mod.bias.copy_(0.1 * torch.randn(mod.bias.shape, generator=gen))
+
+
+def _tree_model(torch, dtype, protos=None):
+    """ProtoTree on ResNet-50 at the recipe's height 9 and D = 256, 200
+    classes, seeded, on the CPU: BatchNorm scales and biases and the leaves
+    at random, the prototypes ``protos``."""
+    from hawkeye_tpu_torch.models import init_parameters
+    from hawkeye_tpu_torch.models.methods.prototree import ProtoTreeNet
+
+    m = ProtoTreeNet(200, height=9, num_features=256, backbone_name="resnet50",
+                     dtype=dtype)
+    gen = torch.Generator().manual_seed(21)
+    init_parameters(m, gen)
+    _bn_at_random(torch, m, gen)
+    with torch.no_grad():
+        m.dist_params.copy_(torch.randn(m.dist_params.shape, generator=gen))
+        if protos is not None:
+            m.prototypes.copy_(protos)
+    return m.double() if dtype == torch.float64 else m
+
+
+def _tree_prototypes(torch, x):
+    """Prototypes near the train-mode features of ``x`` (computed once, on
+    the CPU in float64): prototype i is position i % 16 of the 4 images'
+    2x2 feature maps plus N(0, 0.03^2), a distance of about 16 x 0.03 = 0.48
+    over D = 256, so that its branch goes right for its own image and left
+    for the others."""
+    import torch.nn.functional as F
+
+    m = _tree_model(torch, torch.float64).train()
+    with torch.no_grad():
+        w = m.neck_conv.weight
+        feats = torch.sigmoid(F.linear(m.backbone(x.double())["c5"], w.flatten(1)))
+    feats = feats.reshape(-1, 256).float()
+    noise = torch.randn((511, 256), generator=torch.Generator().manual_seed(22))
+    return feats[torch.arange(511) % feats.shape[0]] + 0.03 * noise
+
+
+def _tree_case(torch, dtype, dev, x, protos):
+    """One train-mode step of ProtoTree through ProtoTreeLoss, the leaf
+    update on its outputs, and the sample_max and greedy leaves (the leaf
+    whose distribution each row's prediction is) of a train-mode forward,
+    whose features the prototypes were drawn near."""
+    from hawkeye_tpu_torch.losses.prototree import ProtoTreeLoss, leaf_update
+    from hawkeye_tpu_torch.models.methods.prototree import l2_distances
+
+    m = _tree_model(torch, dtype, protos).to(dev).train()
+    y = torch.tensor([3, 77, 150, 3], device=dev)
+    xd = x.to(dev, dtype)
+    out = m(xd)
+    ProtoTreeLoss()(out, {"label": y}).backward()
+    grads = {n: p.grad.detach().double().cpu() for n, p in m.named_parameters()}
+    old = torch.rand(m.dist_params.shape, generator=torch.Generator().manual_seed(23))
+    with torch.no_grad():
+        leaves = leaf_update(m.dist_params, old.to(dev, m.dist_params.dtype),
+                             out["pa_leaf"], out["leaf_dist"], out["pred"], y, 200)
+        picked = {}
+        for s in ("sample_max", "greedy"):
+            e = m(xd, sampling=s)
+            picked[s] = (e["pred"][:, None, :] - e["leaf_dist"][None]).abs().sum(
+                -1).argmin(dim=1).cpu()
+        w = m.neck_conv.weight
+        feats = torch.sigmoid(torch.nn.functional.linear(
+            m.backbone(xd)["c5"].to(w.dtype), w.flatten(1)))
+        above = float((torch.exp(-l2_distances(feats, m.prototypes)) > 0.5).float().mean())
+    return (out["logits"].detach().double().cpu(), grads,
+            {"leaves": leaves.double().cpu(), "picked": picked, "above_half": above})
+
+
+def _dcl_case(torch, dtype, dev, batch):
+    """One train-mode step of DCL (ResNet-50) through DCLLoss."""
+    from hawkeye_tpu_torch.losses.dcl import DCLLoss
+    from hawkeye_tpu_torch.models import init_parameters
+    from hawkeye_tpu_torch.models.methods.dcl import DCL
+
+    m = DCL(200, backbone_name="resnet50", dtype=dtype)
+    gen = torch.Generator().manual_seed(24)
+    init_parameters(m, gen)
+    _bn_at_random(torch, m, gen)
+    if dtype == torch.float64:
+        m.double()
+    m.to(dev).train()
+    b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    b["img"] = b["img"].to(dtype)
+    out = m(b["img"])
+    DCLLoss({"alpha": 1, "beta": 1, "gamma": 1})(out, b).backward()
+    grads = {n: p.grad.detach().double().cpu() for n, p in m.named_parameters()}
+    return out["logits"].detach().double().cpu(), grads, {}
+
+
+def check_reference_tree_dcl(torch):
+    """ProtoTree (ResNet-50, 64x64, batch 4, height 9, D = 256) and DCL
+    (ResNet-50, 128x128: a 4x4 c5, a 2x2 mask and a 4-cell law; 2 images,
+    so 4 rows of its host collate with a 2x2 jigsaw) on the card against the
+    CPU, one train-mode step each, TF32 off."""
+    import numpy as np
+
+    from hawkeye_tpu_torch.data.dcl import DCLTrainCollate
+    from hawkeye_tpu_torch.engine.trainer import set_tf32
+
+    set_tf32(False)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+    x = torch.randn((4, 64, 64, 3), generator=torch.Generator().manual_seed(25))
+    protos = _tree_prototypes(torch, x)
+    rs = np.random.RandomState(26)
+    items = [{"img": rs.randint(0, 256, (128, 128, 3)).astype(np.uint8),
+              "label": int(rs.randint(0, 200))} for _ in range(2)]
+    dcl_batch = DCLTrainCollate(grid=2, cls_2=True, seed=27)(items)
+    cases = {"prototree": lambda dtype, dev: _tree_case(torch, dtype, dev, x, protos),
+             "dcl": lambda dtype, dev: _dcl_case(torch, dtype, dev, dcl_batch)}
+    report = {}
+    for name, case in cases.items():
+        row = {}
+        for label, dtype in (("float64", torch.float64), ("float32", torch.float32)):
+            (lc, gc, ec), (lg, gg, eg) = (case(dtype, dev) for dev in ("cpu", "cuda"))
+            errs = {n: rel(gg[n], gc[n]) for n in gc}
+            worst = max(errs, key=errs.get)
+            row[label] = {"logits": rel(lg, lc), "grad_max": errs[worst],
+                          "grad_worst": worst}
+            if ec:
+                row[label].update(
+                    leaf_update_max_abs=float((eg["leaves"] - ec["leaves"]).abs().max()),
+                    leaves_identical={s: bool(torch.equal(eg["picked"][s], ec["picked"][s]))
+                                      for s in ec["picked"]},
+                    greedy_leaves=ec["picked"]["greedy"].tolist(),
+                    sample_max_leaves=ec["picked"]["sample_max"].tolist(),
+                    branch_probs_above_half=ec["above_half"])
+        report[name] = row
+        f64 = row["float64"]
+        if (f64["logits"] > TREE_F64_TOL or f64["grad_max"] > TREE_F64_TOL
+                or row["float32"]["logits"] > TREE_F32_LOGITS_TOL
+                or f64.get("leaf_update_max_abs", 0.0) > TREE_LEAF_TOL
+                or not all(f64.get("leaves_identical", {}).values())):
+            raise AssertionError(f"card vs CPU {name}: {row}")
+    emit("reference_tree_dcl", model="ProtoTree resnet50 64x64 b4 height 9 D=256 "
+         "(prototypes near the features, leaves at random); DCL resnet50 128x128, "
+         "2 images -> 4 rows (2x2 jigsaw); one train-mode step through each "
+         "method's loss, BatchNorm at random; TF32 off",
+         rel_err_of_max=report,
+         tolerances={"float64": TREE_F64_TOL, "float64_leaf_update_abs": TREE_LEAF_TOL,
+                     "float32_logits": TREE_F32_LOGITS_TOL})
+
+
+def _torchvision_resnet50(torch, seed):
+    """A seeded ResNet-50 state dict under torchvision's names (what a
+    ``.pth`` of ImageNet weights holds): convolutions at He scale,
+    BatchNorm near the identity, ``num_batches_tracked`` and a 1000-way
+    ``fc``."""
+    import re
+
+    from hawkeye_tpu_torch.models.backbones.resnet import BACKBONE
+
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, v in BACKBONE.get("resnet50")(num_classes=0).state_dict().items():
+        k = re.sub(r"^layer(\d+)_(\d+)\.", r"layer\1.\2.", k)
+        k = k.replace("downsample_conv", "downsample.0").replace("downsample_bn",
+                                                                 "downsample.1")
+        n = torch.randn(v.shape, generator=gen)
+        if v.dim() == 4:
+            sd[k] = n * math.sqrt(2.0 / v[0].numel())
+        elif k.endswith("running_var"):
+            sd[k] = 1 + 0.1 * n.abs()
+            sd[k.replace("running_var", "num_batches_tracked")] = torch.tensor(100)
+        else:
+            sd[k] = (1.0 if k.endswith("weight") else 0.0) + 0.1 * n
+    sd["fc.weight"] = 0.01 * torch.randn((1000, 2048), generator=gen)
+    sd["fc.bias"] = torch.zeros(1000)
+    return sd
+
+
+def run_tree_dcl(torch, run_dir):
+    """slice_tree_dcl and throughput_tree_dcl: ProtoTree and DCL through
+    their Example trainers at their recipes' shapes, the Tester, then their
+    train rates. Every kernel's launch count must stay 0."""
+    from hawkeye_tpu_torch.examples.DCL import DCLTrainer
+    from hawkeye_tpu_torch.examples.ProtoTreeNet import ProtoTreeTrainer
+    from hawkeye_tpu_torch.models.methods.prototree import load_tree, save_tree
+    from hawkeye_tpu_torch.profile_step import bench_trainer
+
+    # ProtoTree: configs/ProtoTreeNet.yaml, ResNet-50 224x224, batch 64,
+    # height 9, D = 256, AdamW, warm-up cosine; a pretrained .pth; two
+    # epochs of two steps with the backbone's gate at epoch 1
+    pth = os.path.join(run_dir, "resnet50_imagenet.pth")
+    sd = _torchvision_resnet50(torch, 28)
+    torch.save(sd, pth)
+    n_loaded = sum(1 for k in sd if "num_batches" not in k and not k.startswith("fc."))
+    tree_over = {"experiment": {"log_dir": run_dir},
+                 "dataset": {"name": "synthetic", "length": 128, "num_workers": 8,
+                             "num_classes": 200},
+                 "model": {"num_classes": 200,
+                           "backbone": {"name": "resnet50", "pretrain": pth}},
+                 "train": {"epoch": 2}}
+    snaps, reports = [], []
+
+    def prepare(tr):
+        tr.FREEZE_EPOCHS = 1
+        own = tr.model.backbone.state_dict()
+        if own["layer4_2.conv3.weight"].cpu().ne(sd["layer4.2.conv3.weight"]).any():
+            raise AssertionError("the pretrained backbone was not loaded")
+
+        def snapshot():
+            snaps.append(({n: p.detach().cpu().clone()
+                           for n, p in tr.model.backbone.named_parameters()},
+                          tr.model.dist_params.cpu().clone()))
+
+        snapshot()
+        tr.on_end_epoch = snapshot
+        report = tr.report
+
+        def keep(*args):
+            report(*args)
+            reports.append(dict(tr.last_report))
+
+        tr.report = keep
+
+    tree, rep = _train_stage(torch, ProtoTreeTrainer, "ProtoTreeNet.yaml", run_dir,
+                             tree_over, ZERO_LAUNCHES, prepare=prepare)
+    cfg = tree.config
+    if (int(cfg.dataset.batch_size) != 64 or int(cfg.dataset.transformer.image_size) != 224
+            or int(cfg.model.height) != 9 or int(cfg.model.num_features) != 256
+            or cfg.train.optimizer.name != "AdamW" or tree.step != 4):
+        raise AssertionError("configs/ProtoTreeNet.yaml is no longer ResNet-50 224x224 "
+                             f"b64 height 9 D 256 AdamW ({tree.step} steps)")
+    with open(os.path.join(tree.log_root, "report.log")) as f:
+        log = f.read()
+    if f"partial load: {n_loaded} tensors loaded, 2 missing" not in log:
+        raise AssertionError(f"the log shows no load of the {n_loaded} tensors")
+    (b0, l0), (b1, l1), (b2, l2) = snaps
+    frozen = all(torch.equal(b1[n], v) for n, v in b0.items())
+    moved = sum(not torch.equal(b2[n], v) for n, v in b1.items())
+    losses = [r[k] for r in reports for k in ("train_loss", "val_loss")]
+    if (not frozen or moved == 0 or torch.equal(l1, l0) or torch.equal(l2, l1)
+            or not all(math.isfinite(v) for v in losses)):
+        raise AssertionError(f"ProtoTree: backbone frozen in epoch 0 {frozen}, "
+                             f"tensors moved in epoch 1 {moved}, losses {losses}")
+    x = tree.prepare_batch(next(iter(tree.dataloaders["val"])), train=False)["img"]
+    save_tree(os.path.join(run_dir, "tree"), tree.model)
+    with torch.no_grad():
+        tree_same = torch.equal(load_tree(os.path.join(run_dir, "tree"), "cuda").eval()(
+            x)["logits"], tree.model.eval()(x)["logits"])
+    if not tree_same:
+        raise AssertionError("load_tree gives other logits")
+    top1 = _tester_matches(torch, tree, "ProtoTreeNet.yaml", run_dir, tree_over)
+    del tree, x
+    torch.cuda.empty_cache()
+    emit("slice_tree_dcl", recipe="prototree", config="ProtoTreeNet.yaml", batch=64,
+         image_size=224, height=9, num_features=256, pretrain_tensors_loaded=n_loaded,
+         backbone_frozen_epoch0=frozen, backbone_tensors_moved_epoch1=moved,
+         leaves_moved_each_epoch=True, save_load_tree_logits_equal=tree_same,
+         epochs=reports, tester_top1=top1, tester_logits_equal_trainer=True, **rep)
+
+    # DCL: configs/DCL.yaml, ResNet-50 448x448, batch 8 -> 16 rows, SGD with
+    # the head at lr_ratio x the LR; host pipeline, then device
+    for pipeline in ("host", "device"):
+        over = {"experiment": {"log_dir": run_dir, "name": f"dcl_{pipeline}"},
+                "dataset": {"name": "synthetic", "length": 32, "num_workers": 8,
+                            "num_classes": 200, "pipeline": pipeline},
+                "model": {"num_classes": 200}, "train": {"epoch": 1}}
+        dcl, rep = _train_stage(torch, DCLTrainer, "DCL.yaml", run_dir, over,
+                                ZERO_LAUNCHES)
+        cfg = dcl.config
+        groups = {g["label"]: g["lr"] for g in dcl.optimizer.param_groups}
+        batch = dcl.prepare_batch(next(iter(dcl.dataloaders["train"])), train=True)
+        if pipeline == "device":
+            batch = dcl.device_prepare_train(dcl.aug_generator, batch)
+        if (int(cfg.dataset.batch_size) != 8 or tuple(batch["img"].shape) != (16, 448, 448, 3)
+                or tuple(batch["swap_law"].shape) != (16, 49) or dcl.step != 4
+                or abs(groups["head"] / groups["base"] - 10.0) > 1e-9
+                or cfg.train.optimizer.name != "SGD"):
+            raise AssertionError(f"DCL ({pipeline}): batch {tuple(batch['img'].shape)}, "
+                                 f"{dcl.step} steps, groups {groups}")
+        top1 = _tester_matches(torch, dcl, "DCL.yaml", run_dir, over)
+        del dcl, batch
+        torch.cuda.empty_cache()
+        emit("slice_tree_dcl", recipe="dcl", config="DCL.yaml", pipeline=pipeline,
+             batch=8, rows=16, image_size=448, group_lrs=groups, tester_top1=top1,
+             tester_logits_equal_trainer=True, **rep)
+
+    for name, batch in (("prototree", 64), ("dcl", 8)):
+        trainer = bench_trainer(name, run_dir, batch)
+        r = _train_rate(torch, trainer, name, batch)
+        del trainer
+        torch.cuda.empty_cache()
+        note = ("rows: the 2 x 8 [unswapped; swapped] images the model sees per "
+                "step, as bench_methods.py counts DCL" if name == "dcl" else
+                "epoch 0: the backbone's gradients zeroed by the gate")
+        _emit_rate(torch, name, r, {k: 0.0 for k in ZERO_LAUNCHES},
+                   phase="throughput_tree_dcl", counts=note)
 
 
 def main():
@@ -1418,6 +1778,8 @@ def main():
             launches[k] += v
         check_reference_pairs(torch)
         run_pairs(torch, run_dir)
+        check_reference_tree_dcl(torch)
+        run_tree_dcl(torch, run_dir)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
 

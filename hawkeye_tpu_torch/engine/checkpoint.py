@@ -46,31 +46,40 @@ def save_model(path, model):
     _atomic_save(_cpu_state(model), port_path(path))
 
 
-def load_model(path, model, logger=None):
-    """Shape-checked partial load of a weights-only file into ``model``.
-
-    Mirrors the reference's partial ``load_state_dict`` (``model/utils.py:
-    28-33``): tensors whose name and shape match are copied, everything else
-    is kept and reported. Returns the report."""
-    state = torch.load(port_path(path), map_location="cpu", weights_only=True)
-    own = model.state_dict()
-    loaded, skipped_shape = [], []
-    with torch.no_grad():
-        for k, v in state.items():
-            if k not in own:
-                continue
-            if tuple(own[k].shape) != tuple(v.shape):
-                skipped_shape.append(k)
-                continue
-            own[k].copy_(v)
-            loaded.append(k)
-    report = {"loaded": loaded, "skipped_shape": skipped_shape,
-              "skipped_missing": sorted(set(own) - set(loaded) - set(skipped_shape)),
-              "unused": sorted(set(state) - set(own))}
+@torch.no_grad()
+def partial_load(module, state, prefix="", logger=None):
+    """Copy the tensors of ``state`` whose name (under ``prefix``) and shape
+    match ``module``'s state dict, keep the rest of the module as it is
+    (reference ``model/utils.py:28-33``), and report, as the JAX package's
+    ``merge_into`` does, how many were loaded and which of ``state``'s were
+    missing from the module or shape-mismatched."""
+    own = module.state_dict()
+    report = {"loaded": 0, "skipped_missing": [], "skipped_shape": []}
+    for k, v in state.items():
+        name = prefix + k
+        if name not in own:
+            report["skipped_missing"].append(name)
+        elif tuple(own[name].shape) != tuple(v.shape):
+            report["skipped_shape"].append(
+                f"{name}: {tuple(own[name].shape)} vs {tuple(v.shape)}")
+        else:
+            own[name].copy_(v)
+            report["loaded"] += 1
     if logger is not None:
-        logger.info(f"loaded {len(loaded)} tensors; shape mismatch "
-                    f"{skipped_shape}; kept init {report['skipped_missing']}")
+        logger.info(
+            f"partial load: {report['loaded']} tensors loaded, "
+            f"{len(report['skipped_missing'])} missing, "
+            f"{len(report['skipped_shape'])} shape-mismatched")
+        for s in report["skipped_shape"]:
+            logger.info(f"  shape mismatch: {s}")
     return report
+
+
+def load_model(path, model, logger=None):
+    """Shape-checked partial load (``partial_load``) of a weights-only file
+    into ``model``; returns the report."""
+    state = torch.load(port_path(path), map_location="cpu", weights_only=True)
+    return partial_load(model, state, logger=logger)
 
 
 def save_checkpoint(path, *, epoch, model, optimizer, scheduler_state=None,

@@ -39,8 +39,13 @@ come from a ``torch.Generator`` on the device, seeded from
 resumed run draws what the uninterrupted one would have; the streams differ
 from JAX's.
 
-Not ported yet: multi-process data sharding, ``experiment.profile``,
-pretrained backbones.
+Pretrained backbones: ``model.pretrain`` (else ``model.backbone.pretrain``)
+names a local file, loaded after the init and before ``model.load`` as
+``models/weights.load_pretrained_backbone`` does (``model.pretrain_kind``:
+``resnet`` by default, ``vgg`` or ``bbn_inat``); a missing file logs
+``training from scratch`` and keeps the init, as in the JAX package.
+
+Not ported yet: multi-process data sharding, ``experiment.profile``.
 """
 
 from __future__ import annotations
@@ -65,6 +70,7 @@ from ..data import (
 from ..data.transforms_device import make_eval_transform, make_train_augment
 from ..losses import build_criterion
 from ..models import build_model, init_parameters
+from ..models.weights import load_pretrained_backbone
 from ..utils import (
     AverageMeter,
     PerformanceMeter,
@@ -173,6 +179,7 @@ class Trainer:
         self.logger.info(f"Building model {self.config.model.name} ...")
         self.model = self.get_model(self.config.model)
         init_parameters(self.model, self.generator)
+        self.load_pretrained()
         if "load" in self.config.model and self.config.model.load:
             self.logger.info(f"Loading model weights from {self.config.model.load}")
             ckpt.load_model(self.config.model.load, self.model, logger=self.logger)
@@ -283,6 +290,18 @@ class Trainer:
 
     def get_criterion(self, criterion_config):
         return build_criterion(criterion_config)
+
+    def load_pretrained(self):
+        """The optional pretrained backbone (``hawkeye_tpu/engine/trainer.py``
+        reads the same keys)."""
+        mcfg = self.config.model
+        bb_cfg = mcfg.get("backbone")
+        path = bb_cfg.get("pretrain") if hasattr(bb_cfg, "get") else None
+        path = mcfg.get("pretrain", path)
+        if path:
+            load_pretrained_backbone(self.model, path,
+                                     mcfg.get("pretrain_kind", "resnet"),
+                                     logger=self.logger)
 
     def get_param_groups(self):
         """Override to return group dicts ``{"params": [...], "lr_mult": m}``."""

@@ -5,6 +5,6 @@
 
 on the CUDA device unless ``--device cpu`` is given. Ported so far:
 Baseline, BCNN, CBCNN, MPN, PairConfusion, PeerLearning, OSMENet, APINet,
-CIN, CrossX and InterpPartsNet.
+CIN, CrossX, InterpPartsNet, ProtoTreeNet and DCL.
 """
 

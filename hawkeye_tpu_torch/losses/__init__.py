@@ -6,8 +6,9 @@ holds at least 'logits' and ``batch`` has 'label' (int [B]) or soft 'label'
 [B, C], and optionally a per-sample 'weight' [B]. The reference's default is
 ``CrossEntropyLoss(label_smoothing=0.1)`` (``train.py:211-212``). Ported so
 far: the cross-entropy, ``PairwiseConfusionLoss``, ``PeerLearningLoss``,
-``MAMCLoss``, ``APINetLoss``, ``CINLoss``, ``CrossXLoss`` and
-``InterpPartsLoss``; DCL's, NTS-Net's and ProtoTree's wait.
+``MAMCLoss``, ``APINetLoss``, ``CINLoss``, ``CrossXLoss``,
+``InterpPartsLoss``, ``ProtoTreeLoss`` and ``DCLLoss``; NTS-Net's, APCNN's,
+S3N's and MGE-CNN's wait.
 """
 
 from __future__ import annotations
@@ -63,10 +64,12 @@ def build_criterion(criterion_config):
         apinet,
         cin,
         crossx,
+        dcl,
         interp_parts,
         mamc,
         pair_confusion,
         peer_learning,
+        prototree,
     )
 
     if criterion_config is None or "name" not in criterion_config:

@@ -15,9 +15,12 @@ the ``weight`` of an ``nn.Conv2d`` or ``nn.Linear`` is ``kernel``; a
 BatchNorm ``weight`` is ``scale``, its ``running_mean``/``running_var`` are
 ``batch_stats/.../{mean,var}``; ``bias`` stays. A raw ``nn.Parameter`` of a
 module keeps its flax name and layout (Interp-Parts' ``grouping.weight``,
-the ``[K, C]`` part centres, is flax's ``grouping/weight``). Layouts: conv
-kernel HWIO <-> weight OIHW, dense kernel [in, out] <-> weight [out, in];
-the rest as they are.
+the ``[K, C]`` part centres, is flax's ``grouping/weight``). A persistent
+buffer that its module names in ``flax_collections`` (``{buffer: collection}``)
+is that flax collection's variable of the same name (ProtoTree's
+``dist_params`` is flax's non-gradient ``tree_leaves/dist_params``).
+Layouts: conv kernel HWIO <-> weight OIHW, dense kernel [in, out] <-> weight
+[out, in]; the rest as they are.
 """
 
 from __future__ import annotations
@@ -55,7 +58,10 @@ def _flax_key(module, name):
             path.append(mods[i])
             m = getattr(m, mods[i])
             i += 1
-    if isinstance(m, BatchNorm):
+    own = getattr(m, "flax_collections", {})
+    if leaf in own:
+        collection = own[leaf]
+    elif isinstance(m, BatchNorm):
         collection, leaf = _BN_LEAVES[leaf]
     elif isinstance(m, (nn.Conv2d, nn.Linear)) and leaf == "weight":
         collection, leaf = "params", "kernel"
@@ -95,12 +101,14 @@ def _to_jax_layout(arr: np.ndarray, leaf: str) -> np.ndarray:
 
 @torch.no_grad()
 def load_jax_variables(module: torch.nn.Module, variables: dict):
-    """Copy ``variables['params']`` and ``variables['batch_stats']`` into
-    ``module``. Every parameter and buffer must be filled exactly once, with
-    a matching shape, or this raises."""
+    """Copy ``variables['params']``, ``variables['batch_stats']`` and the
+    collections the module's ``flax_collections`` name into ``module``.
+    Every parameter and buffer must be filled exactly once, with a matching
+    shape, or this raises."""
     targets = _name_map(module)
     filled = set()
-    for collection in ("params", "batch_stats"):
+    own = sorted({c for c, _ in targets} - {"params", "batch_stats"})
+    for collection in ("params", "batch_stats", *own):
         for path, arr in _flatten(variables.get(collection, {})):
             key = (collection, path)
             if key not in targets:
@@ -121,9 +129,9 @@ def load_jax_variables(module: torch.nn.Module, variables: dict):
 
 
 def export_jax_variables(module: torch.nn.Module) -> dict:
-    """The module's parameters (and BatchNorm statistics) as a flax-layout
-    ``{'params': {...}[, 'batch_stats': {...}]}`` tree of float32 numpy
-    arrays."""
+    """The module's parameters (and BatchNorm statistics, and the buffers of
+    ``flax_collections``) as a flax-layout ``{'params': {...}[,
+    'batch_stats': {...}, ...]}`` tree of float32 numpy arrays."""
     trees: dict = {}
     for (collection, path), (_, t) in _name_map(module).items():
         node = trees.setdefault(collection, {})

@@ -5,8 +5,10 @@ from . import (  # noqa: F401  (MODEL registrations)
     cbcnn,
     cin,
     crossx,
+    dcl,
     interp_parts,
     mpn,
     osme,
     peer_learning,
+    prototree,
 )

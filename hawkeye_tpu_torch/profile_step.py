@@ -2,7 +2,7 @@
 
     python -m hawkeye_tpu_torch.profile_step
         [--model bcnn|resnet50|cbcnn|mpn|peer_learning|pair_confusion|
-                 osme|apinet|cin|crossx|interp_parts]
+                 osme|apinet|cin|crossx|interp_parts|prototree|dcl]
         [--batch 8,128] [--steps 5]
 
 ``--model bcnn`` (the default) builds the port's Trainer from
@@ -24,11 +24,17 @@ VGG-16 peers, 224x224, ``fused_pooling: true``, drop rate 0.25) and
 ``apinet`` from ``configs/APINet.yaml`` (ResNet-101, 224x224, a step past
 epoch 0, whose gate zeroes the backbone's gradients), ``cin`` from
 ``configs/CIN.yaml`` (ResNet-50, 224x224), ``crossx`` from
-``configs/CrossX.yaml`` (448x448) and ``interp_parts`` from
-``configs/InterpPartsNet.yaml`` (IP-ResNet-101, K = 5, 448x448). The P x K
-recipes (OSME, API-Net, CIN) take ``--batch`` as P x K with the recipe's K
-(``dataset.n_samples``), and their labels come as P random classes K
-times each. Random weights, synthetic data, on the CUDA device.
+``configs/CrossX.yaml`` (448x448), ``interp_parts`` from
+``configs/InterpPartsNet.yaml`` (IP-ResNet-101, K = 5, 448x448),
+``prototree`` from ``configs/ProtoTreeNet.yaml`` (ResNet-50, 224x224,
+height 9, D = 256; epoch 0, so the backbone's gradients are zeroed, and
+the leaf update after each step) and ``dcl`` from ``configs/DCL.yaml``
+(ResNet-50, 448x448): its batches are what its host collate gives, 2B rows
+``[unswapped; swapped]`` with their swap labels and laws, and its rates
+count the 2B rows the model sees (``bench_methods.py`` counts them so too).
+The P x K recipes (OSME, API-Net, CIN) take ``--batch`` as P x K with the
+recipe's K (``dataset.n_samples``), and their labels come as P random
+classes K times each. Random weights, synthetic data, on the CUDA device.
 
 For each batch size it times ``--steps`` train steps with a sync at each
 end, then profiles the same number of steps with ``torch.profiler``. Prints
@@ -85,7 +91,9 @@ _RECIPES = {"cbcnn": ("CBCNN_S2.yaml", "CBCNN", "CBCNNTrainer", 448),
             "cin": ("CIN.yaml", "CIN", "CINTrainer", 224),
             "crossx": ("CrossX.yaml", "CrossX", "CrossXTrainer", 448),
             "interp_parts": ("InterpPartsNet.yaml", "InterpPartsNet",
-                             "InterpPartsTrainer", 448)}
+                             "InterpPartsTrainer", 448),
+            "prototree": ("ProtoTreeNet.yaml", "ProtoTreeNet", "ProtoTreeTrainer", 224),
+            "dcl": ("DCL.yaml", "DCL", "DCLTrainer", 448)}
 
 
 def recipe_n_samples(model):
@@ -185,7 +193,9 @@ def bench_lr(trainer):
 def bench_batches(model, batch, n, seed=0, device="cuda"):
     """``n`` device-resident batches, each its own: float images for BCNN
     and the Example trainers' models, the device pipeline's uint8 decodes
-    for ResNet-50; P x K labels for the balanced recipes."""
+    for ResNet-50; P x K labels for the balanced recipes; for DCL the 2x
+    ``[unswapped; swapped]`` batch of its host collate (``batch`` images
+    give 2 x ``batch`` rows)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     size = _RECIPES[model][3] if model in _RECIPES else 448
@@ -205,7 +215,31 @@ def bench_batches(model, batch, n, seed=0, device="cuda"):
         out.append({"img": img, "label": label})
         if model == "peer_learning":
             out[-1]["drop_rate"] = 0.25
+        if model == "dcl":
+            out[-1] = _dcl_rows(img, label, gen)
     return out
+
+
+def _dcl_rows(img, label, gen):
+    """The host collate's batch for ``img``/``label``: the images, then
+    their jigsaws by random local permutations; swap labels 1 then 0, the
+    identity laws then the permutations', and weights 1."""
+    from .data.dcl import (
+        device_apply_jigsaw,
+        device_swap_law,
+        identity_law,
+        permutations_from_keys,
+    )
+
+    b, dev = img.shape[0], img.device
+    perms = permutations_from_keys(
+        *(torch.rand((b, 7, 7), device=dev, generator=gen) for _ in range(2)))
+    law = torch.as_tensor(identity_law(7), device=dev).expand(b, 49)
+    return {"img": torch.cat([img, device_apply_jigsaw(img, perms)]),
+            "label": torch.cat([label, label]),
+            "label_swap": torch.cat([torch.ones_like(label), torch.zeros_like(label)]),
+            "swap_law": torch.cat([law, device_swap_law(perms)]),
+            "weight": torch.ones(2 * b, device=dev)}
 
 
 def profile_batch(model, batch, steps, run_dir):
@@ -228,6 +262,7 @@ def profile_batch(model, batch, steps, run_dir):
         trainer.train_step_call(b, lr)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / steps * 1e3
+    rows = batches[0]["img"].shape[0]  # DCL's 2x batch counts its rows
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -274,9 +309,9 @@ def profile_batch(model, batch, steps, run_dir):
     del trainer, batches
     torch.cuda.empty_cache()
     return {
-        "model": model, "batch": batch, "steps": steps,
+        "model": model, "batch": batch, "rows": rows, "steps": steps,
         "wall_ms_per_step": wall_ms,
-        "images_per_sec": batch / wall_ms * 1e3,
+        "images_per_sec": rows / wall_ms * 1e3,
         "device_kernel_ms_per_step": device_ms,
         "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
         "ms_per_step_by_category": dict(sorted(cats.items(), key=lambda kv: -kv[1])),
