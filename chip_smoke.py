@@ -996,16 +996,20 @@ ZERO_LAUNCHES = {"pool_fwd": 0, "pool_bwd": 0, "gram_signed_sqrt": 0}
 def _tester_matches(torch, trainer, config, run_dir, over):
     """The Tester on the trainer's best model and val split: its top-1 must
     be the trainer's best val accuracy, and its logits on the first val
-    batch the trainer's model's with the best weights. Launches must stay
-    0."""
+    batch the trained model's in memory, so that the hold covers save and
+    load. Only where an earlier epoch than the last was the best (the
+    trainer saves the last of equal bests) does the trainer's model first
+    load the saved best. Launches must stay 0."""
     from hawkeye_tpu_torch.config import setup_config
     from hawkeye_tpu_torch.engine import Tester
     from hawkeye_tpu_torch.engine import checkpoint as ckpt
     from hawkeye_tpu_torch.ops import LAUNCHES, reset_launches
 
     best = os.path.join(trainer.log_root, "best_model.msgpack")  # the recipe's name
-    ckpt.load_model(best, trainer.model)
-    val_acc = trainer.performance_meters["val"]["acc"].best_value
+    meter = trainer.performance_meters["val"]["acc"]
+    val_acc = meter.best_value
+    if meter.values[-1] != val_acc:
+        ckpt.load_model(best, trainer.model)
     val = trainer.prepare_batch(next(iter(trainer.dataloaders["val"])), train=False)
     if trainer.pipeline == "device":
         val = trainer.device_prepare_eval(val)

@@ -272,30 +272,34 @@ def _identity_laws(b, grid, device):
     return law.expand(b, grid * grid)
 
 
-def apply_dcl_augment(batch, draws, image_size, grid=7, cls_2=True,
-                      num_classes=None):
-    """The DCL train batch from uint8 ``img`` [B, R, R, 3] and ``draws``:
-    ``img`` [2B, S, S, 3] float32 ``[unswapped; swapped]``, normalised, with
-    ``label``, ``label_swap``, ``swap_law`` and (when the batch has one)
-    ``weight``, each doubled in the same order."""
-    imgs = batch["img"].to(torch.float32) / 255.0
-    b = imgs.shape[0]
-    out = rotate_crop(imgs, draws["theta"], draws["top"], draws["left"], image_size)
-    out = hflip(out, draws["flip"])
-    swapped = device_apply_jigsaw(out, draws["perms"], grid)
+def double_batch(batch, imgs, perms, grid=7, cls_2=True, num_classes=None):
+    """The 2x batch of ``imgs`` [B, S, S, C] and their jigsaws by ``perms``:
+    ``img`` [2B, S, S, C] ``[unswapped; swapped]`` with ``label``,
+    ``label_swap``, ``swap_law`` and (when the batch has one) ``weight``,
+    each doubled in the same order."""
     labels = batch["label"]
     new = dict(batch)
-    new["img"] = device_normalize(torch.cat([out, swapped]))
+    new["img"] = torch.cat([imgs, device_apply_jigsaw(imgs, perms, grid)])
     new["label"] = torch.cat([labels, labels])
     if cls_2:
         new["label_swap"] = torch.cat([torch.ones_like(labels), torch.zeros_like(labels)])
     else:
         new["label_swap"] = torch.cat([labels, labels + int(num_classes)])
-    new["swap_law"] = torch.cat([_identity_laws(b, grid, imgs.device),
-                                 device_swap_law(draws["perms"], grid)])
+    new["swap_law"] = torch.cat([_identity_laws(imgs.shape[0], grid, imgs.device),
+                                 device_swap_law(perms, grid)])
     if "weight" in batch:
         new["weight"] = torch.cat([batch["weight"], batch["weight"]])
     return new
+
+
+def apply_dcl_augment(batch, draws, image_size, grid=7, cls_2=True,
+                      num_classes=None):
+    """The DCL train batch from uint8 ``img`` [B, R, R, 3] and ``draws``:
+    rotated, cropped, flipped and normalised, then ``double_batch``."""
+    imgs = batch["img"].to(torch.float32) / 255.0
+    out = rotate_crop(imgs, draws["theta"], draws["top"], draws["left"], image_size)
+    out = device_normalize(hflip(out, draws["flip"]))
+    return double_batch(batch, out, draws["perms"], grid, cls_2, num_classes)
 
 
 def make_dcl_device_augment(image_size, rotate=15.0, grid=7, ran=2, cls_2=True,

@@ -32,11 +32,8 @@ class DCLTrainer(Trainer):
             return super().get_transformers(transformer_config)
         resize = int(transformer_config.get("resize_size", 512))
         crop = int(transformer_config.get("image_size", 448))
-        # rotate: degrees; rrc: false keeps the eval geometry in training
-        # (the jigsaw still applies)
         return {"train": DCLCommonAug(resize, crop,
-                                      rotate=float(transformer_config.get("rotate", 15)),
-                                      train=bool(transformer_config.get("rrc", True))),
+                                      rotate=float(transformer_config.get("rotate", 15))),
                 "val": DCLCommonAug(resize, crop, train=False)}
 
     def get_collate_fn(self):
@@ -52,8 +49,7 @@ class DCLTrainer(Trainer):
         tcfg = self.config.dataset.transformer
         augment = make_dcl_device_augment(
             int(tcfg.image_size), rotate=float(tcfg.get("rotate", 15)),
-            grid=p["grid"], ran=int(tcfg.get("swap_range", 2)),
-            cls_2=p["cls_2"], num_classes=p["num_classes"])
+            grid=p["grid"], cls_2=p["cls_2"], num_classes=p["num_classes"])
         return augment(generator, batch)
 
     def device_prepare_eval(self, batch):

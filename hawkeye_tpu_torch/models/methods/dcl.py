@@ -21,8 +21,8 @@ from ...registry import BACKBONE, MODEL
 
 
 class DCL(nn.Module):
-    def __init__(self, num_classes, cls_2=True, cls_2xmul=False,
-                 backbone_name="resnet50", dtype=torch.bfloat16):
+    def __init__(self, num_classes, cls_2=True, backbone_name="resnet50",
+                 dtype=torch.bfloat16):
         super().__init__()
         self.backbone = BACKBONE.get(backbone_name)(num_classes=0, dtype=dtype)
         c = self.backbone.out_channels
@@ -49,5 +49,4 @@ class DCL(nn.Module):
 def build_dcl(config):
     return DCL(num_classes=int(config.num_classes),
                cls_2=bool(config.get("cls_2", True)),
-               cls_2xmul=bool(config.get("cls_2xmul", False)),
                backbone_name=config.get("backbone", "resnet50"))

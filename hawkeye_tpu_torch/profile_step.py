@@ -66,6 +66,7 @@ import torch
 
 from . import models  # noqa: F401  (registry side effects)
 from .config import ConfigNode, load_yaml_config
+from .data.dcl import double_batch, permutations_from_keys
 from .data.transforms_device import make_train_augment
 from .engine import Trainer
 
@@ -215,31 +216,13 @@ def bench_batches(model, batch, n, seed=0, device="cuda"):
         out.append({"img": img, "label": label})
         if model == "peer_learning":
             out[-1]["drop_rate"] = 0.25
-        if model == "dcl":
-            out[-1] = _dcl_rows(img, label, gen)
+        if model == "dcl":  # the host collate's weights and jigsaws
+            perms = permutations_from_keys(
+                *(torch.rand((batch, 7, 7), device=device, generator=gen)
+                  for _ in range(2)))
+            out[-1] = double_batch(dict(out[-1], weight=torch.ones(batch, device=device)),
+                                   img, perms)
     return out
-
-
-def _dcl_rows(img, label, gen):
-    """The host collate's batch for ``img``/``label``: the images, then
-    their jigsaws by random local permutations; swap labels 1 then 0, the
-    identity laws then the permutations', and weights 1."""
-    from .data.dcl import (
-        device_apply_jigsaw,
-        device_swap_law,
-        identity_law,
-        permutations_from_keys,
-    )
-
-    b, dev = img.shape[0], img.device
-    perms = permutations_from_keys(
-        *(torch.rand((b, 7, 7), device=dev, generator=gen) for _ in range(2)))
-    law = torch.as_tensor(identity_law(7), device=dev).expand(b, 49)
-    return {"img": torch.cat([img, device_apply_jigsaw(img, perms)]),
-            "label": torch.cat([label, label]),
-            "label_swap": torch.cat([torch.ones_like(label), torch.zeros_like(label)]),
-            "swap_law": torch.cat([law, device_swap_law(perms)]),
-            "weight": torch.ones(2 * b, device=dev)}
 
 
 def profile_batch(model, batch, steps, run_dir):
