@@ -155,6 +155,36 @@ exits non-zero:
     as ``bench_methods.py`` counts DCL) as phase 13 times them, on
     ``profile_step``'s trainer and batches, no kernel launch.
 
+20. reference_region: NTS-Net (ResNet-18, 64x64, batch 4,
+    ``pad_side = part_size = 64``, M = 6, K = 4, dropout off: the two
+    devices draw other masks) on its sequential path and with
+    ``fused_part_pass``, and AP-CNN (the recipe's ResNet-50, 64x64, batch 4,
+    the dropblock on fixed draws), 200 classes, on the card against the
+    CPU, one train-mode step through each method's loss, BatchNorm scales
+    and biases at random, TF32 off: with the whole model in float64, logits,
+    every gradient and every running statistic within 1e-8 of the tensor's
+    largest value (AP-CNN's heads' ``bn1``/``fc1`` biases, 0 in exact
+    arithmetic, below 1e-8 of the largest gradient), the greedy picks
+    (NTS-Net's anchors per forward, AP-CNN's ``rois``) identical, and the
+    card's fused path against its sequential path to the same 1e-8 with
+    the same picks; the float32 readings are printed, with the count of
+    rows whose picks differ.
+21. slice_region: NTS-Net through its Example trainer at
+    ``configs/NTSNet.yaml``'s shape (ResNet-50, 224x224, batch 4, M = 6,
+    K = 4, Adam with its warm-up cosine) and AP-CNN at ``configs/APCNN.yaml``'s
+    (ResNet-50, 448x448, batch 8, SGD, the trunk group at 0.1x the heads'
+    LR), synthetic data, 200 classes, one epoch of four steps with
+    validation; the Tester on each best model (top-1 equal to the trainer's,
+    logits equal to the trained model's); finite losses; every kernel's
+    launch count 0; and one train forward and backward of each model under
+    ``torch.cuda.set_sync_debug_mode("error")``: the proposals, NMS, crops
+    and dropblock wait on nothing from the host.
+22. throughput_region: ``ntsnet_train_images_per_sec`` (batch 4 at
+    224x224; it counts the 4 images of a step, not the 4 + 24 backbone
+    rows) and ``apcnn_train_images_per_sec`` (batch 8 at 448x448) as phase
+    13 times them, on ``profile_step``'s trainer and batches, no kernel
+    launch.
+
 Then a ``kernels`` JSON line (pool kernels at batch 8; the Gram at batch
 128, where its 134 MB output cannot stay in the 50 MB L2 between replays;
 ``launches`` summed over the BCNN stage 2 and the new recipes' stages),
@@ -1725,6 +1755,199 @@ def run_tree_dcl(torch, run_dir):
                    phase="throughput_tree_dcl", counts=note)
 
 
+# ----------------------------------------------------------------------------
+# phases 20-22: the sixth slice, NTS-Net and AP-CNN through their Example
+# trainers
+# ----------------------------------------------------------------------------
+# card against CPU, relative to each tensor's largest value, the whole model
+# in float64: logits, gradients and running statistics (held, with the
+# picks identical); float32 printed
+REGION_F64_TOL = 1e-8
+# AP-CNN's heads' biases before their second, train-mode BatchNorm: 0 in
+# exact arithmetic, held below REGION_F64_TOL of the model's largest gradient
+REGION_ZERO_GRADS = {"apcnn": tuple(f"{h}.{n}.bias" for h in ("cls3", "cls4", "cls5",
+                                                               "cls_concate")
+                                    for n in ("bn1", "fc1"))}
+# the dropblock's draws for the 4 images: a level-3 ROI dropped, a level-4
+# one, none, a level-3 one
+APCNN_DRAWS = {"pro": (0.1, 0.45, 0.8, 0.2), "i3": (0, 3, 1, 4), "i4": (2, 0, 1, 1)}
+# recipe -> (config, Example module, trainer class, input size, batch)
+REGION_RECIPES = {"ntsnet": ("NTSNet.yaml", "NTSNet", "NTSNetTrainer", 224, 4),
+                  "apcnn": ("APCNN.yaml", "APCNN", "APCNNTrainer", 448, 8)}
+
+
+def _region_case(torch, name, dtype, dev, fused=False):
+    """One train-mode forward and backward of NTS-Net (ResNet-18, 64x64,
+    ``pad_side = part_size = 64``, M = 6, K = 4, dropout off: the two
+    devices draw other masks) or AP-CNN (the recipe's ResNet-50, 64x64, the
+    dropblock on APCNN_DRAWS), 200 classes, batch 4, BatchNorm scales and
+    biases at random, through the method's loss on ``dev``: (logits,
+    {parameter: gradient}, {buffer: running statistic}, the greedy picks:
+    NTS-Net's [B, M] per forward, AP-CNN's ``rois``)."""
+    from hawkeye_tpu_torch.losses.apcnn import APCNNLoss
+    from hawkeye_tpu_torch.losses.nts import NTSLoss
+    from hawkeye_tpu_torch.models import init_parameters
+    from hawkeye_tpu_torch.models.methods.apcnn import APCNN
+    from hawkeye_tpu_torch.models.methods.ntsnet import NTSNet
+
+    if name == "ntsnet":
+        m = NTSNet(200, image_size=64, pad_side=64, part_size=64, backbone_name="resnet18",
+                   dtype=dtype, fused_part_pass=fused)
+        m.dropout_rate = 0.0
+    else:
+        m = APCNN(200, image_size=64, dtype=dtype)
+    gen = torch.Generator().manual_seed(31)
+    init_parameters(m, gen)
+    _bn_at_random(torch, m, gen)
+    if dtype == torch.float64:
+        m.double()
+    m.to(dev).train()
+    x = torch.randn((4, 64, 64, 3), generator=torch.Generator().manual_seed(32)).to(dev, dtype)
+    y = torch.tensor([3, 77, 150, 3], device=dev)
+    picks = []
+    if name == "ntsnet":
+        real = m._nms
+        m._nms = lambda scores: picks.append(real(scores)) or picks[-1]
+        out, crit = m(x), NTSLoss()
+    else:
+        draws = {k: torch.tensor(v, device=dev) for k, v in APCNN_DRAWS.items()}
+        out, crit = m(x, dropblock=draws), APCNNLoss()
+        picks.append(out["rois"])
+    crit(out, {"label": y}).backward()
+    grads = {n: p.grad.detach().double().cpu() for n, p in m.named_parameters()}
+    stats = {n: b.detach().double().cpu() for n, b in m.named_buffers() if "running" in n}
+    return (out["logits"].detach().double().cpu(), grads, stats,
+            [p.detach().cpu() for p in picks])
+
+
+def check_reference_region(torch):
+    """NTS-Net (sequential and fused) and AP-CNN on the card against the
+    CPU, TF32 off; and NTS-Net's fused path against its sequential path on
+    the card."""
+    from hawkeye_tpu_torch.engine.trainer import set_tf32
+
+    set_tf32(False)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+    def compare(a, b, zero=()):
+        (la, ga, sa, pa), (lb, gb, sb, pb) = a, b
+        errs = {n: rel(ga[n], gb[n]) for n in gb if n not in zero}
+        worst = max(errs, key=errs.get)
+        top = max(float(g.abs().max()) for g in (*ga.values(), *gb.values()))
+        return {"logits": rel(la, lb), "grad_max": errs[worst], "grad_worst": worst,
+                "stats_max": max(rel(sa[n], sb[n]) for n in sb),
+                "zero_grads_of_max": max((float(g[n].abs().max()) / top
+                                          for g in (ga, gb) for n in zero), default=0.0),
+                "pick_rows_differing": sum(int((p != q).reshape(p.shape[0], -1).any(1).sum())
+                                           for p, q in zip(pa, pb)),
+                "forwards_picked": len(pb)}
+
+    report, card64 = {}, {}
+    for name, fused in (("ntsnet", False), ("ntsnet_fused", True), ("apcnn", False)):
+        model = name.split("_")[0]
+        row = {}
+        for label, dtype in (("float64", torch.float64), ("float32", torch.float32)):
+            cpu, card = (_region_case(torch, model, dtype, dev, fused)
+                         for dev in ("cpu", "cuda"))
+            row[label] = compare(card, cpu, REGION_ZERO_GRADS.get(model, ()))
+            if label == "float64":
+                card64[name] = card
+        report[name] = row
+        f64 = row["float64"]
+        if (max(f64["logits"], f64["grad_max"], f64["stats_max"],
+                f64["zero_grads_of_max"]) > REGION_F64_TOL
+                or f64["pick_rows_differing"] != 0 or f64["forwards_picked"] == 0):
+            raise AssertionError(f"card vs CPU {name}: {row}")
+    fused = compare(card64["ntsnet_fused"], card64["ntsnet"])
+    if (max(fused["logits"], fused["grad_max"], fused["stats_max"]) > REGION_F64_TOL
+            or fused["pick_rows_differing"] != 0):
+        raise AssertionError(f"NTS-Net fused vs sequential on the card: {fused}")
+    emit("reference_region", model="NTS-Net resnet18 64x64 b4 pad_side=part_size=64 "
+         "M=6 K=4 (dropout off), sequential and fused_part_pass; AP-CNN resnet50 "
+         "64x64 b4, dropblock on fixed draws; 200 classes, one train-mode step "
+         "through each method's loss, BatchNorm at random; TF32 off",
+         rel_err_of_max=report, ntsnet_fused_vs_sequential_card_float64=fused,
+         tolerances={"float64": REGION_F64_TOL, "zero_grads": REGION_ZERO_GRADS,
+                     "float64_pick_rows_differing": 0})
+
+
+def _no_host_sync(torch, trainer):
+    """One train forward and backward of the trainer's model under
+    ``torch.cuda.set_sync_debug_mode("error")``: any call that waits for
+    the device raises. The batch is on the card before the mode is set."""
+    batch = trainer.prepare_batch(next(iter(trainer.dataloaders["train"])), train=True)
+    generator = trainer.model_generator()
+    trainer.model.train()
+    trainer.optimizer.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = trainer.model(batch["img"], generator=generator)
+        trainer.criterion(out, batch).backward()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return True
+
+
+def run_region(torch, run_dir):
+    """slice_region and throughput_region: NTS-Net and AP-CNN through their
+    Example trainers at their recipes' shapes, the Tester, a train forward
+    and backward with no host sync, then their train rates. Every kernel's
+    launch count must stay 0."""
+    import importlib
+
+    from hawkeye_tpu_torch.profile_step import bench_trainer
+
+    for name, (config, module, cls, size, batch) in REGION_RECIPES.items():
+        trainer_cls = getattr(importlib.import_module(
+            f"hawkeye_tpu_torch.examples.{module}"), cls)
+        over = {"experiment": {"log_dir": run_dir},
+                "dataset": {"name": "synthetic", "length": 4 * batch, "num_workers": 8,
+                            "num_classes": 200},
+                "model": {"num_classes": 200}, "train": {"epoch": 1}}
+        tr, rep = _train_stage(torch, trainer_cls, config, run_dir, over, ZERO_LAUNCHES)
+        cfg = tr.config
+        if (int(cfg.dataset.transformer.image_size) != size
+                or int(cfg.dataset.batch_size) != batch or tr.step != 4):
+            raise AssertionError(f"{config}: {cfg.dataset.transformer.image_size}px "
+                                 f"batch {cfg.dataset.batch_size}, {tr.step} steps")
+        fields = {}
+        if name == "ntsnet":
+            m = tr.model
+            if (m.proposal_num, m.cat_num, m.fused_part_pass) != (6, 4, False) or \
+                    cfg.train.optimizer.name != "Adam":
+                raise AssertionError(f"{config}: M {m.proposal_num}, K {m.cat_num}, "
+                                     f"fused {m.fused_part_pass}, {cfg.train.optimizer.name}")
+            fields.update(proposal_num=6, cat_num=4, part_size=m.part_size)
+        else:
+            groups = {g["label"]: g["lr"] for g in tr.optimizer.param_groups}
+            if (abs(groups["trunk"] / groups["head"] - 0.1) > 1e-9
+                    or cfg.train.optimizer.name != "SGD"):
+                raise AssertionError(f"AP-CNN group LRs {groups}")
+            fields["group_lrs"] = groups
+        top1 = _tester_matches(torch, tr, config, run_dir, over)
+        no_sync = _no_host_sync(torch, tr)
+        del tr
+        torch.cuda.empty_cache()
+        emit("slice_region", recipe=name, config=config, batch=batch, image_size=size,
+             tester_top1=top1, tester_logits_equal_trainer=True,
+             tester_launches=ZERO_LAUNCHES, train_forward_backward_no_host_sync=no_sync,
+             **fields, **rep)
+
+    for name, (_, _, _, _, batch) in REGION_RECIPES.items():
+        trainer = bench_trainer(name, run_dir, batch)
+        r = _train_rate(torch, trainer, name, batch)
+        del trainer
+        torch.cuda.empty_cache()
+        note = ("the 4 images of a step, not the 4 + 24 backbone rows"
+                if name == "ntsnet" else "the 8 images of a step")
+        _emit_rate(torch, name, r, {k: 0.0 for k in ZERO_LAUNCHES},
+                   phase="throughput_region", counts=note)
+
+
 def main():
     import torch
 
@@ -1784,6 +2007,8 @@ def main():
         run_pairs(torch, run_dir)
         check_reference_tree_dcl(torch)
         run_tree_dcl(torch, run_dir)
+        check_reference_region(torch)
+        run_region(torch, run_dir)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
 

@@ -153,6 +153,7 @@ class Trainer:
 
         self.seed = int(self.config.experiment.get("seed", 0) or 0)
         self.generator = set_random_seed(self.seed)
+        self._model_generator = None  # made on first use (model_generator)
         name = (torch.cuda.get_device_name(self.device)
                 if self.device.type == "cuda" else "cpu")
         self.logger.info(f"Device: {self.device} ({name})")
@@ -364,6 +365,17 @@ class Trainer:
         batch = dict(batch)
         batch["img"] = self.device_eval_prep(batch["img"])
         return batch
+
+    def model_generator(self):
+        """A generator on the device for the model's own train-mode draws
+        (dropout masks, a dropblock), seeded from ``experiment.seed`` and
+        the step, as the JAX step folds the step into its key, so a resumed
+        run draws what the uninterrupted one would have; bit 63 keeps the
+        stream apart from the augmentation's seeds."""
+        if self._model_generator is None:
+            self._model_generator = torch.Generator(device=self.device)
+        self._model_generator.manual_seed((self.seed * 2**32 + self.step) | 1 << 63)
+        return self._model_generator
 
     def prepare_batch(self, batch, train):
         """Host numpy batch -> dict of tensors on the device (from pinned

@@ -7,8 +7,8 @@ holds at least 'logits' and ``batch`` has 'label' (int [B]) or soft 'label'
 ``CrossEntropyLoss(label_smoothing=0.1)`` (``train.py:211-212``). Ported so
 far: the cross-entropy, ``PairwiseConfusionLoss``, ``PeerLearningLoss``,
 ``MAMCLoss``, ``APINetLoss``, ``CINLoss``, ``CrossXLoss``,
-``InterpPartsLoss``, ``ProtoTreeLoss`` and ``DCLLoss``; NTS-Net's, APCNN's,
-S3N's and MGE-CNN's wait.
+``InterpPartsLoss``, ``ProtoTreeLoss``, ``DCLLoss``, ``NTSLoss`` and
+``APCNNLoss``; S3N's and MGE-CNN's wait.
 """
 
 from __future__ import annotations
@@ -61,12 +61,14 @@ LOSS.register(CrossEntropyLoss, name="CrossEntropyLoss")
 def build_criterion(criterion_config):
     # late imports: loss modules register themselves on import
     from . import (  # noqa: F401
+        apcnn,
         apinet,
         cin,
         crossx,
         dcl,
         interp_parts,
         mamc,
+        nts,
         pair_confusion,
         peer_learning,
         prototree,

@@ -1,0 +1,26 @@
+"""AP-CNN loss: the sum of the 8 heads' label-smoothed CE.
+
+Counterpart of ``hawkeye_tpu/losses/apcnn.py`` (reference
+``Examples/APCNN.py:49``); ``label_smoothing`` defaults to 0.1.
+"""
+
+from __future__ import annotations
+
+from ..registry import LOSS
+from . import cross_entropy
+
+
+class APCNNLoss:
+    def __init__(self, config=None):
+        cfg = config or {}
+        get = cfg.get if hasattr(cfg, "get") else lambda k, d=None: d
+        self.label_smoothing = float(get("label_smoothing", 0.1))
+
+    def __call__(self, outputs, batch):
+        heads = outputs["all_logits"]
+        return sum(cross_entropy(heads[i], batch["label"], self.label_smoothing,
+                                 weights=batch.get("weight"))
+                   for i in range(heads.shape[0]))
+
+
+LOSS.register(APCNNLoss, name="APCNNLoss")

@@ -17,8 +17,12 @@ with ``var = invstd^-2 - eps``. It has no ``num_batches_tracked``; the weight
 bridge carries ``running_mean``/``running_var`` as flax's
 ``batch_stats/{mean,var}``.
 
-Not ported yet: per-group statistics (``groups > 1``, ``group_sizes``) for
-the fused multi-view passes of S3N and NTS-Net.
+``GroupedBatchNorm`` is the counterpart of the JAX package's module of that
+name, for the fused multi-view passes (NTS-Net's global + parts pass, S3N's
+views): in train mode each contiguous batch group is normalised with its own
+statistics and the running averages fold one group after another, in group
+order, as separate passes would. Its parameters and buffers are
+``BatchNorm``'s, and with one group it is ``BatchNorm``.
 """
 
 from __future__ import annotations
@@ -53,3 +57,35 @@ class BatchNorm(nn.Module):
             self.running_mean.mul_(self.momentum).add_(mean, alpha=self._rate)
             self.running_var.mul_(self.momentum).add_(var, alpha=self._rate)
         return y
+
+
+class GroupedBatchNorm(BatchNorm):
+    """``BatchNorm`` whose train-mode statistics are per batch group.
+
+    ``groups`` (set by the caller before a forward, as the ResNet's
+    ``bn_groups`` does) is an int G, G equal contiguous groups, or a tuple
+    of the groups' sizes, such as ``(B, B*M)``; 1 is plain ``BatchNorm``.
+    Eval mode ignores it."""
+
+    def __init__(self, num_features, momentum=0.9, eps=1e-5):
+        super().__init__(num_features, momentum, eps)
+        self.groups = 1
+
+    def forward(self, x):
+        if not self.training or self.groups == 1:
+            return super().forward(x)
+        n = x.shape[0]
+        if isinstance(self.groups, (tuple, list)):
+            sizes = tuple(int(s) for s in self.groups)
+            if sum(sizes) != n:
+                raise ValueError(f"group sizes {sizes} do not sum to batch {n}")
+        else:
+            g = int(self.groups)
+            if n % g:
+                raise ValueError(f"batch {n} not divisible by bn groups {g}")
+            sizes = (n // g,) * g
+        ys, off = [], 0
+        for s in sizes:  # contiguous batch slices, folded in group order
+            ys.append(super().forward(x[off:off + s]))
+            off += s
+        return torch.cat(ys)

@@ -20,8 +20,13 @@ plain name map.
 JAX option is an MXU layout of the same function with the same
 ``(7, 7, 3, 64)`` parameter.
 
-Not ported yet: per-view BatchNorm (``grouped_bn``, ``bn_groups``) and the
-cross-replica ``bn_cross_replica_axis``.
+Per-view BatchNorm for fused multi-view passes: with ``grouped_bn`` the
+norm layers are ``GroupedBatchNorm`` and ``forward(x, bn_groups=...)``
+takes an int G (equal contiguous groups) or a tuple of group sizes (NTS-Net's
+``(B, B*M)``); ``bn_groups`` other than 1 without ``grouped_bn`` raises. The
+parameters and buffers are the same either way.
+
+Not ported yet: the cross-replica ``bn_cross_replica_axis``.
 """
 
 from __future__ import annotations
@@ -31,12 +36,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...registry import BACKBONE
-from .norm import BatchNorm
+from .norm import BatchNorm, GroupedBatchNorm
 
 
 def _conv(conv, x, dtype):
+    """``conv`` applied to NCHW ``x`` in ``dtype``, as a flax conv with that
+    ``dtype`` computes: input, weight and bias cast to it, the weight in
+    channels-last memory."""
     w = conv.weight.to(dtype, memory_format=torch.channels_last)
-    return F.conv2d(x, w, None, conv.stride, conv.padding, 1, conv.groups)
+    b = None if conv.bias is None else conv.bias.to(dtype)
+    return F.conv2d(x.to(dtype), w, b, conv.stride, conv.padding, 1, conv.groups)
 
 
 class BasicBlock(nn.Module):
@@ -45,17 +54,17 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, c_in, filters, stride=1, downsample=False, groups=1,
-                 base_width=64, dtype=torch.bfloat16, **bn):
+                 base_width=64, dtype=torch.bfloat16, norm=BatchNorm, **bn):
         super().__init__()
         self.dtype = dtype
         self.conv1 = nn.Conv2d(c_in, filters, 3, stride, 1, bias=False)
-        self.bn1 = BatchNorm(filters, **bn)
+        self.bn1 = norm(filters, **bn)
         self.conv2 = nn.Conv2d(filters, filters, 3, 1, 1, bias=False)
-        self.bn2 = BatchNorm(filters, **bn)
+        self.bn2 = norm(filters, **bn)
         self.downsample = downsample
         if downsample:
             self.downsample_conv = nn.Conv2d(c_in, filters, 1, stride, bias=False)
-            self.downsample_bn = BatchNorm(filters, **bn)
+            self.downsample_bn = norm(filters, **bn)
 
     def forward(self, x):
         out = F.relu(self.bn1(_conv(self.conv1, x, self.dtype)))
@@ -72,21 +81,21 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, c_in, filters, stride=1, downsample=False, groups=1,
-                 base_width=64, dtype=torch.bfloat16, **bn):
+                 base_width=64, dtype=torch.bfloat16, norm=BatchNorm, **bn):
         super().__init__()
         self.dtype = dtype
         width = int(filters * (base_width / 64.0)) * groups
         c_out = filters * self.expansion
         self.conv1 = nn.Conv2d(c_in, width, 1, bias=False)
-        self.bn1 = BatchNorm(width, **bn)
+        self.bn1 = norm(width, **bn)
         self.conv2 = nn.Conv2d(width, width, 3, stride, 1, groups=groups, bias=False)
-        self.bn2 = BatchNorm(width, **bn)
+        self.bn2 = norm(width, **bn)
         self.conv3 = nn.Conv2d(width, c_out, 1, bias=False)
-        self.bn3 = BatchNorm(c_out, **bn)
+        self.bn3 = norm(c_out, **bn)
         self.downsample = downsample
         if downsample:
             self.downsample_conv = nn.Conv2d(c_in, c_out, 1, stride, bias=False)
-            self.downsample_bn = BatchNorm(c_out, **bn)
+            self.downsample_bn = norm(c_out, **bn)
 
     def forward(self, x):
         out = F.relu(self.bn1(_conv(self.conv1, x, self.dtype)))
@@ -99,17 +108,19 @@ class Bottleneck(nn.Module):
 
 
 class ResNet(nn.Module):
-    """ResNet v1.5 trunk; ``forward(x)`` returns the stage dict."""
+    """ResNet v1.5 trunk; ``forward(x, bn_groups=1)`` returns the stage dict."""
 
     def __init__(self, block_cls, stage_sizes, num_classes=0, groups=1,
                  width_per_group=64, dtype=torch.bfloat16, bn_momentum=0.9,
                  bn_epsilon=1e-5, strides=(1, 2, 2, 2),
-                 stem_space_to_depth=False):
+                 stem_space_to_depth=False, grouped_bn=False):
         super().__init__()
         self.dtype = dtype
+        self.grouped_bn = bool(grouped_bn)
+        norm = GroupedBatchNorm if grouped_bn else BatchNorm
         bn = dict(momentum=bn_momentum, eps=bn_epsilon)
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
-        self.bn1 = BatchNorm(64, **bn)
+        self.bn1 = norm(64, **bn)
         self.stage_names = []
         c_in, filters = 64, 64
         for i, (num_blocks, stride) in enumerate(zip(stage_sizes, strides)):
@@ -121,7 +132,7 @@ class ResNet(nn.Module):
                 name = f"layer{i + 1}_{j}"
                 self.add_module(name, block_cls(
                     c_in, filters, blk_stride, needs_down, groups,
-                    width_per_group, dtype, **bn))
+                    width_per_group, dtype, norm, **bn))
                 names.append(name)
                 c_in = filters * block_cls.expansion
             self.stage_names.append(names)
@@ -141,7 +152,13 @@ class ResNet(nn.Module):
             s = (s - 1) // stride + 1
         return s
 
-    def forward(self, x):
+    def forward(self, x, bn_groups=1):
+        if self.grouped_bn:
+            for m in self.modules():
+                if isinstance(m, GroupedBatchNorm):
+                    m.groups = bn_groups
+        elif bn_groups != 1:
+            raise ValueError("bn_groups other than 1 needs grouped_bn=True")
         # NHWC in; the NCHW view of channels-last memory is what cuDNN takes
         x = x.to(self.dtype).permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)

@@ -9,7 +9,10 @@ kernel, and so does the port:
   RandomResizedCrop, center crop or box crop for a whole batch, with an
   optional per-image horizontal flip folded into the x-weights. The first
   product contracts the rows, its result rounds to ``dtype``, the second
-  contracts the columns: JAX's order.
+  contracts the columns: JAX's order. AP-CNN's union-box crop of its
+  stride-8 feature map is one of these.
+- ``crop_resize_multibox``: M boxes per image from the one image, the M axis
+  carried by the weight matrices (NTS-Net's part crops), in the same order.
 - ``grid_sample_bilinear``: general bilinear grid sampling by a 4-tap gather
   from a zero-padded copy, for the per-image affine warps of TA-wide.
 - ``resize_nearest``: nearest-neighbour resize by a gather of rows and
@@ -17,8 +20,6 @@ kernel, and so does the port:
 
 Coordinates follow ``align_corners=False`` (torchvision / ``F.interpolate``
 default) unless asked otherwise. Images are NHWC.
-
-Not ported yet: ``crop_resize_multibox`` (NTS-Net, APCNN).
 """
 
 from __future__ import annotations
@@ -27,6 +28,11 @@ import numpy as np
 import torch
 
 from ..utils.tensors import device_constant
+
+
+def _reciprocal(n: int) -> float:
+    """``1 / n`` rounded to float32."""
+    return float(np.float32(1.0) / np.float32(n))
 
 
 def _bilinear_weights(starts, sizes, in_size: int, out_size: int, dtype,
@@ -38,12 +44,16 @@ def _bilinear_weights(starts, sizes, in_size: int, out_size: int, dtype,
     starts = starts.float()[:, None]
     sizes = sizes.float()[:, None]
     j = torch.arange(out_size, dtype=torch.float32, device=starts.device)[None, :]
+    # the source coordinates as XLA computes the JAX expressions: the
+    # division by a constant as a product with its float32 reciprocal, and
+    # start + j * scale as one fused multiply-add (``addcmul``); separate
+    # operations land one float32 ulp apart at coordinates of a few hundred
     if align_corners:
-        scale = (sizes - 1.0) / float(max(out_size - 1, 1))
-        src = starts + j * scale
+        scale = (sizes - 1.0) * _reciprocal(max(out_size - 1, 1))
+        src = torch.addcmul(starts, j, scale)
     else:
-        scale = sizes / float(out_size)
-        src = starts + (j + 0.5) * scale - 0.5
+        scale = sizes * _reciprocal(out_size)
+        src = torch.addcmul(starts, j + 0.5, scale) - 0.5
     lo = starts.clamp(0.0, float(in_size - 1))
     hi = (starts + sizes - 1.0).clamp(0.0, float(in_size - 1))
     src = torch.minimum(torch.maximum(src, lo), hi)
@@ -86,6 +96,34 @@ def crop_resize_bilinear(images, boxes, out_h: int, out_w: int, dtype=None,
     # columns: [B, ow, W] @ [B, W, C*oh] -> [B, ow, C*oh]
     out = torch.bmm(wx, tmp.view(b, w, c * out_h))
     return out.view(b, out_w, c, out_h).permute(0, 3, 1, 2).contiguous()
+
+
+def crop_resize_multibox(images, boxes, out_h: int, out_w: int, dtype=None,
+                         align_corners=False):
+    """Crop M boxes per image without copying the image M times.
+
+    images: [B, H, W, C]; boxes: [B, M, 4] (y0, x0, h, w) in pixels.
+    Returns [B, M, out_h, out_w, C] in ``dtype`` (as
+    ``crop_resize_bilinear``): the rows of every box first, rounded to
+    ``dtype``, then its columns.
+    """
+    b, h, w, c = images.shape
+    m = boxes.shape[1]
+    if dtype is None:
+        dtype = images.dtype if images.is_floating_point() else torch.float32
+    imgs = images.to(dtype)
+    flat = boxes.reshape(b * m, 4)
+    wy = _bilinear_weights(flat[:, 0], flat[:, 2], h, out_h, dtype,
+                           align_corners)  # [B*M, oh, H]
+    wx = _bilinear_weights(flat[:, 1], flat[:, 3], w, out_w, dtype,
+                           align_corners)  # [B*M, ow, W]
+    # rows: [B, M*oh, H] @ [B, H, W*C] -> [B, M*oh, W*C]
+    tmp = torch.bmm(wy.reshape(b, m * out_h, h), imgs.reshape(b, h, w * c))
+    # columns: [B*M, ow, W] @ [B*M, W, oh*C] -> [B*M, ow, oh*C]
+    tmp = tmp.reshape(b * m, out_h, w, c).transpose(1, 2).reshape(
+        b * m, w, out_h * c)
+    out = torch.bmm(wx, tmp).reshape(b, m, out_w, out_h, c)
+    return out.transpose(2, 3).contiguous()
 
 
 def resize_bilinear(images, out_h: int, out_w: int, dtype=None,

@@ -2,7 +2,8 @@
 
     python -m hawkeye_tpu_torch.profile_step
         [--model bcnn|resnet50|cbcnn|mpn|peer_learning|pair_confusion|
-                 osme|apinet|cin|crossx|interp_parts|prototree|dcl]
+                 osme|apinet|cin|crossx|interp_parts|prototree|dcl|
+                 ntsnet|apcnn]
         [--batch 8,128] [--steps 5]
 
 ``--model bcnn`` (the default) builds the port's Trainer from
@@ -31,7 +32,10 @@ height 9, D = 256; epoch 0, so the backbone's gradients are zeroed, and
 the leaf update after each step) and ``dcl`` from ``configs/DCL.yaml``
 (ResNet-50, 448x448): its batches are what its host collate gives, 2B rows
 ``[unswapped; swapped]`` with their swap labels and laws, and its rates
-count the 2B rows the model sees (``bench_methods.py`` counts them so too).
+count the 2B rows the model sees (``bench_methods.py`` counts them so too),
+``ntsnet`` from ``configs/NTSNet.yaml`` (ResNet-50, 224x224, M = 6; its
+rates count the B images, not the B + B*M backbone rows) and ``apcnn``
+from ``configs/APCNN.yaml`` (ResNet-50, 448x448).
 The P x K recipes (OSME, API-Net, CIN) take ``--batch`` as P x K with the
 recipe's K (``dataset.n_samples``), and their labels come as P random
 classes K times each. Random weights, synthetic data, on the CUDA device.
@@ -44,8 +48,12 @@ idle share, kernel time by category and the top kernels, and the three
 ported kernels' device time per launch. A kernel's category comes from the
 host op that launched it where that says more than its name: everything
 the augmentation launches is ``augmentation``, everything under the
-optimizer's step is ``optimizer``; for ``cbcnn`` every kernel under an
-``aten::bmm`` or ``aten::mm`` (the Gram, the sketch products, the
+optimizer's step is ``optimizer``; for ``ntsnet`` what its ``_nms`` and
+``_crop`` launch (the greedy loop; the padding and the part crops) is
+``nms`` and ``roi_crop``, and for ``apcnn`` what ``_rois`` and
+``_roi_crop`` launch (the attention masking and the NMS; the dropblock and
+the union crop, forward only) is ``nms`` and ``roi_crop``; for ``cbcnn``
+every kernel under an ``aten::bmm`` or ``aten::mm`` (the Gram, the sketch products, the
 per-frequency reduction and the irDFT matmuls, forward and backward; not
 ``fc``'s backward) is ``compact_bilinear``, and for ``mpn`` every kernel
 under an ``aten::bmm`` (the covariance and the Newton-Schulz products) is
@@ -77,6 +85,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PORTED = {"pool_fwd_kernel": "pool_fwd", "pool_bwd_kernel": "pool_bwd",
            "gram_signed_sqrt": "gram_signed_sqrt"}
 _AUGMENT = "hk::augment"  # the profiler range around the device augmentation
+# model -> {its method: category}: profiler ranges around a model's own steps
+_RANGES = {"ntsnet": {"_nms": "nms", "_crop": "roi_crop"},
+           "apcnn": {"_rois": "nms", "_roi_crop": "roi_crop"}}
 # model -> (category, host ops whose kernels it takes): the high-order heads
 _HEADS = {"cbcnn": ("compact_bilinear", ("aten::bmm", "aten::mm")),
           "mpn": ("covariance_newton_schulz", ("aten::bmm",))}
@@ -94,7 +105,9 @@ _RECIPES = {"cbcnn": ("CBCNN_S2.yaml", "CBCNN", "CBCNNTrainer", 448),
             "interp_parts": ("InterpPartsNet.yaml", "InterpPartsNet",
                              "InterpPartsTrainer", 448),
             "prototree": ("ProtoTreeNet.yaml", "ProtoTreeNet", "ProtoTreeTrainer", 224),
-            "dcl": ("DCL.yaml", "DCL", "DCLTrainer", 448)}
+            "dcl": ("DCL.yaml", "DCL", "DCLTrainer", 448),
+            "ntsnet": ("NTSNet.yaml", "NTSNet", "NTSNetTrainer", 224),
+            "apcnn": ("APCNN.yaml", "APCNN", "APCNNTrainer", 448)}
 
 
 def recipe_n_samples(model):
@@ -131,6 +144,8 @@ def _launch_category(event, head=None) -> str | None:
     while event is not None:
         if event.name == _AUGMENT:
             return "augmentation"
+        if event.name.startswith("hk::"):
+            return event.name[len("hk::"):]
         if event.name.startswith("Optimizer.step"):
             return "optimizer"
         names.append(event.name)
@@ -225,6 +240,15 @@ def bench_batches(model, batch, n, seed=0, device="cuda"):
     return out
 
 
+def _ranged(fn, name):
+    """``fn`` inside the profiler range ``name``."""
+    def wrapped(*args, **kwargs):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kwargs)
+
+    return wrapped
+
+
 def profile_batch(model, batch, steps, run_dir):
     trainer = bench_trainer(model, run_dir, batch)
     if trainer.pipeline == "device":
@@ -235,6 +259,9 @@ def profile_batch(model, batch, steps, run_dir):
                 return augment(generator, images)
 
         trainer.device_augment = annotated
+    for method, category in _RANGES.get(model, {}).items():
+        setattr(trainer.model, method, _ranged(getattr(trainer.model, method),
+                                               f"hk::{category}"))
     batches = bench_batches(model, batch, steps)
     lr = bench_lr(trainer)
     for b in batches[:3]:

@@ -1,6 +1,7 @@
 """The port's VGG and BCNN (hawkeye_tpu_torch/models) against the JAX
-package at small size, float32 on both sides, with the JAX weights carried
-across by the bridge. Forward rtol 1e-4 / atol 1e-5; parameter gradients
+package at small size, float32 on both sides, with the weights carried
+across by the bridge: the port's init (``port_init``, so that no JAX init
+runs), and the JAX init for the bridge's round trip. Forward rtol 1e-4 / atol 1e-5; parameter gradients
 rtol 1e-3, with an atol of 1e-3 of each tensor's largest gradient for the
 entries near zero (conv summation order differs between XLA and PyTorch on
 the CPU)."""
@@ -18,6 +19,7 @@ from hawkeye_tpu.models.methods.bcnn import BCNN as JaxBCNN
 from hawkeye_tpu_torch.models import export_jax_variables, load_jax_variables
 from hawkeye_tpu_torch.models.backbones import vgg as port_vgg
 from hawkeye_tpu_torch.models.methods.bcnn import BCNN as PortBCNN
+from test_torch_resnet import port_init
 
 
 def _assert_grads_close(got_tree, want_tree):
@@ -52,16 +54,16 @@ def test_vgg_stages_and_grads_match_jax(name, cfg):
     x = np.random.RandomState(0).randn(2, 32, 32, 3).astype(np.float32)
     jm = jax_vgg.VGG(cfg=jax_vgg._VGG_CFGS[cfg], num_classes=0,
                      dtype=jnp.float32)
-    variables = jm.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    pm = port_vgg.VGG(port_vgg._VGG_CFGS[cfg], dtype=torch.float32)
+    variables = port_init(pm, 0)
 
     def loss_fn(params):
         out = jm.apply({"params": params}, jnp.asarray(x))
         return (out["pooled_features"] ** 2).sum() + out["features"].sum(), out
 
-    (_, out_j), g_j = jax.value_and_grad(loss_fn, has_aux=True)(variables["params"])
+    (_, out_j), g_j = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        variables["params"])
 
-    pm = port_vgg.VGG(port_vgg._VGG_CFGS[cfg], dtype=torch.float32)
-    load_jax_variables(pm, jax.device_get(variables))
     out_t = pm(torch.from_numpy(x))
     ((out_t["pooled_features"] ** 2).sum() + out_t["features"].sum()).backward()
 
@@ -78,18 +80,17 @@ def test_bcnn_logits_and_grads_match_jax(fused):
     y = np.array([1, 3])
     jm = JaxBCNN(num_classes=4, stage=2, backbone_name="vgg11",
                  fused_pooling=fused, dtype=jnp.float32)
-    variables = jm.init(jax.random.PRNGKey(2), jnp.asarray(x))
+    pm = PortBCNN(num_classes=4, stage=2, backbone_name="vgg11",
+                  fused_pooling=fused, dtype=torch.float32)
+    variables = port_init(pm, 2)
 
     def loss_fn(params):
         logits = jm.apply({"params": params}, jnp.asarray(x))["logits"]
         return -jax.nn.log_softmax(logits)[jnp.arange(2), y].sum(), logits
 
-    (_, logits_j), g_j = jax.value_and_grad(loss_fn, has_aux=True)(
+    (_, logits_j), g_j = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
         variables["params"])
 
-    pm = PortBCNN(num_classes=4, stage=2, backbone_name="vgg11",
-                  fused_pooling=fused, dtype=torch.float32)
-    load_jax_variables(pm, jax.device_get(variables))
     logits_t = pm(torch.from_numpy(x))["logits"]
     (-torch.log_softmax(logits_t, -1)[torch.arange(2), torch.from_numpy(y)]
      .sum()).backward()
@@ -103,15 +104,14 @@ def test_stage1_backbone_gets_no_gradient():
     x = np.random.RandomState(3).randn(2, 64, 64, 3).astype(np.float32)
     jm = JaxBCNN(num_classes=4, stage=1, backbone_name="vgg11",
                  dtype=jnp.float32)
-    variables = jm.init(jax.random.PRNGKey(3), jnp.asarray(x))
-    g_j = jax.grad(lambda p: jm.apply({"params": p}, jnp.asarray(x))[
-        "logits"].sum())(variables["params"])
+    pm = PortBCNN(num_classes=4, stage=1, backbone_name="vgg11",
+                  dtype=torch.float32)
+    variables = port_init(pm, 3)
+    g_j = jax.jit(jax.grad(lambda p: jm.apply({"params": p}, jnp.asarray(x))[
+        "logits"].sum()))(variables["params"])
     assert all(float(jnp.abs(v).max()) == 0.0
                for v in jax.tree_util.tree_leaves(g_j["backbone"]))
 
-    pm = PortBCNN(num_classes=4, stage=1, backbone_name="vgg11",
-                  dtype=torch.float32)
-    load_jax_variables(pm, jax.device_get(variables))
     pm(torch.from_numpy(x))["logits"].sum().backward()
     assert all(p.grad is None for p in pm.backbone.parameters())
     assert float(pm.fc.weight.grad.abs().max()) > 0.0
@@ -120,8 +120,8 @@ def test_stage1_backbone_gets_no_gradient():
 
 def test_bridge_round_trip_and_names():
     jm = JaxBCNN(num_classes=3, backbone_name="vgg11", dtype=jnp.float32)
-    variables = jax.device_get(
-        jm.init(jax.random.PRNGKey(4), jnp.zeros((1, 32, 32, 3))))
+    variables = jax.device_get(  # compiled as one program: the same values
+        jax.jit(jm.init)(jax.random.PRNGKey(4), jnp.zeros((1, 32, 32, 3))))
     pm = PortBCNN(num_classes=3, backbone_name="vgg11", dtype=torch.float32)
     load_jax_variables(pm, variables)
     back = export_jax_variables(pm)

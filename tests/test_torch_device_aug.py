@@ -80,9 +80,9 @@ def test_crop_resize_bilinear_matches_jax(align_corners, dtype):
 def test_bilinear_weights_and_resize_match_jax():
     starts = np.array([-3.0, 0.0, 5.5, 17.0], np.float32)
     sizes = np.array([10.0, 24.0, 3.0, 12.0], np.float32)
-    for ac in (False, True):
-        want = jax_rs._bilinear_weights(jnp.asarray(starts), jnp.asarray(sizes),
-                                        24, 7, jnp.float32, align_corners=ac)
+    for ac in (False, True):  # jitted, as the JAX package runs it
+        want = jax.jit(jax_rs._bilinear_weights, static_argnums=(2, 3, 4, 5))(
+            jnp.asarray(starts), jnp.asarray(sizes), 24, 7, jnp.float32, ac)
         got = rs._bilinear_weights(_t(starts), _t(sizes), 24, 7, torch.float32,
                                    align_corners=ac)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)

@@ -1,6 +1,6 @@
 """The port's MPN Example trainer against the JAX package's
 Examples/MPN.py on the CPU: one step of each on the same synthetic host
-batch from bridged weights, resnet18 trunks at 96x96 with
+batch from the port's init (``from_port``), resnet18 trunks at 96x96 with
 ``dimension_reduction`` 16 (a 3x3 ``c5`` map), batch 8, float64 trunks and
 SGD, as test_torch_examples_resnet.py sets out; the tolerances of
 test_torch_examples.py. SGD also shows the parameter groups in the
@@ -19,14 +19,14 @@ import hawkeye_tpu_torch.models  # noqa: F401
 from hawkeye_tpu.models.methods.mpn import MPN as JaxMPN
 from hawkeye_tpu_torch.examples.MPN import MPNTrainer
 from hawkeye_tpu_torch.models.methods.mpn import MPN
-from test_torch_examples import JitInit, _batch, one_step
+from test_torch_examples import _batch, one_step
 from test_torch_examples_resnet import _pair
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from Examples.MPN import MPNTrainer as JaxMPNTrainer  # noqa: E402
 
 
-class JaxF64MPNTrainer(JitInit, JaxMPNTrainer):
+class JaxF64MPNTrainer(JaxMPNTrainer):
     def get_model(self, model_config):
         return JaxMPN(num_classes=4, backbone_name="resnet18",
                       dimension_reduction=16, dtype=jnp.float64)

@@ -44,7 +44,7 @@ from hawkeye_tpu.engine.optim import build_optimizer as jax_build_optimizer
 from test_torch_examples import _batch, one_step
 from test_torch_osme import perturbed
 from test_torch_resnet import _assert_close_scaled, _leaves
-from test_torch_trainer import _tiny_recipe_path
+from test_torch_trainer import _tiny_recipe_path, from_port
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from Examples.APINet import APINetTrainer as JaxAPINetTrainer  # noqa: E402
@@ -73,13 +73,9 @@ def example_pair(tmp_path, jax_cls, port_cls, recipe, overrides, seed, edit=None
     if edit is not None:
         edit(variables)
     load_jax_variables(pt.model, variables)
-
-    class FromPort(NoTensorBoard, jax_cls):
-        def init_model_variables(self):
-            return variables
-
+    jax_cls = from_port(type(jax_cls.__name__, (NoTensorBoard, jax_cls), {}), pt.model)
     with jax.enable_x64(True):
-        jt = FromPort(jax_setup_config(argv=["--config", path]))
+        jt = jax_cls(jax_setup_config(argv=["--config", path]))
     return jt, pt
 
 

@@ -29,11 +29,10 @@ from hawkeye_tpu.models.methods.bcnn import BCNN as JaxBCNN
 from hawkeye_tpu.models.methods.peer_learning import PeerLearningNet as JaxPL
 from hawkeye_tpu_torch.config import setup_config
 from hawkeye_tpu_torch.examples.PeerLearning import PLTrainer
-from hawkeye_tpu_torch.models import load_jax_variables
 from hawkeye_tpu_torch.models.methods.bcnn import BCNN
 from hawkeye_tpu_torch.models.methods.peer_learning import PeerLearningNet
-from test_torch_examples import JitInit, _batch, one_step
-from test_torch_trainer import _tiny_recipe_path
+from test_torch_examples import _batch, one_step
+from test_torch_trainer import _tiny_recipe_path, from_port
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from Examples.PeerLearning import PLTrainer as JaxPLTrainer  # noqa: E402
@@ -60,7 +59,7 @@ class PortF64PL(PeerLearningNet):
         self.base_model2 = BCNN(dtype=torch.float64, **kw)
 
 
-class JaxF64PLTrainer(JitInit, JaxPLTrainer):
+class JaxF64PLTrainer(JaxPLTrainer):
     def get_model(self, model_config):
         return JaxF64PL(base_config=_peer_kwargs(model_config))
 
@@ -78,10 +77,9 @@ def test_peer_learning_stage2_step_matches_jax_example(tmp_path):
                   "base_model": {"backbone": "vgg11", "num_classes": 4}},
         "train": {"epoch": 10, "optimizer": {"name": "SGD", "lr": 1.0,
                                              "momentum": 0.9}}})
-    with jax.enable_x64(True):
-        jt = JaxF64PLTrainer(jax_setup_config(argv=["--config", path]))
     pt = PortF64PLTrainer(setup_config(argv=["--config", path]), device="cpu")
-    load_jax_variables(pt.model, {"params": jax.device_get(jt.state.params)})
+    with jax.enable_x64(True):
+        jt = from_port(JaxF64PLTrainer, pt.model)(jax_setup_config(argv=["--config", path]))
     assert pt.rate_schedule.dtype == np.float32
     np.testing.assert_array_equal(pt.rate_schedule, jt.rate_schedule)
     jt.epoch = pt.epoch = 3  # a drop rate inside the ramp, 0.0833

@@ -1,7 +1,8 @@
 """The port's Pairwise Confusion Example trainer against the JAX package's
 Examples/PairConfusion.py on the CPU: one step of each on the same
-synthetic host batch from bridged weights, resnet18 trunks at 96x96, batch
-8. The tolerances of test_torch_examples.py. ``_pair`` builds such a pair
+synthetic host batch from the port's init (``from_port``: the JAX trainer
+starts from it through the bridge, so no JAX init compiles), resnet18
+trunks at 96x96, batch 8. The tolerances of test_torch_examples.py. ``_pair`` builds such a pair
 for test_torch_examples_mpn.py too.
 
 The trunks run in float64 on both sides (MPN's head is float32 in both
@@ -26,10 +27,9 @@ from hawkeye_tpu.models.methods.baseline import BaselineClassifier as JaxBaselin
 from hawkeye_tpu_torch.config import setup_config
 from hawkeye_tpu_torch.examples.PairConfusion import PairConfusionTrainer
 from hawkeye_tpu_torch.losses.pair_confusion import PairwiseConfusionLoss
-from hawkeye_tpu_torch.models import load_jax_variables
 from hawkeye_tpu_torch.models.methods.baseline import BaselineClassifier
-from test_torch_examples import JitInit, _batch, one_step
-from test_torch_trainer import _tiny_recipe_path
+from test_torch_examples import _batch, one_step
+from test_torch_trainer import _tiny_recipe_path, from_port
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from Examples.PairConfusion import PairConfusionTrainer as JaxPCTrainer  # noqa: E402
@@ -38,7 +38,7 @@ SIZE = {"dataset": {"length": 16, "batch_size": 8,
                     "transformer": {"image_size": 96, "resize_size": 110}}}
 
 
-class JaxF64PCTrainer(JitInit, JaxPCTrainer):
+class JaxF64PCTrainer(JaxPCTrainer):
     def get_model(self, model_config):
         return JaxBaseline(backbone_name="resnet18", num_classes=4,
                            dtype=jnp.float64)
@@ -53,11 +53,9 @@ class PortF64PCTrainer(PairConfusionTrainer):
 
 def _pair(tmp_path, jax_cls, port_cls, recipe, overrides):
     path = _tiny_recipe_path(recipe, tmp_path, {**SIZE, **overrides})
-    with jax.enable_x64(True):
-        jt = jax_cls(jax_setup_config(argv=["--config", path]))
-        variables = {k: jax.device_get(v) for k, v in jt.model_variables().items()}
     pt = port_cls(setup_config(argv=["--config", path]), device="cpu")
-    load_jax_variables(pt.model, variables)
+    with jax.enable_x64(True):
+        jt = from_port(jax_cls, pt.model)(jax_setup_config(argv=["--config", path]))
     return jt, pt
 
 

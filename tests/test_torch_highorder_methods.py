@@ -33,7 +33,8 @@ def _cbcnn_pair(stage):
     x = np.random.RandomState(0).randn(2, 32, 32, 3).astype(np.float32)
     jm = JaxCBCNN(num_classes=5, stage=stage, output_channel=64,
                   backbone_name="vgg11", dtype=jnp.float32)
-    variables = jax.device_get(jm.init(jax.random.PRNGKey(0), jnp.asarray(x)))
+    # compiled as one program: the values of the op-by-op init
+    variables = jax.device_get(jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.asarray(x)))
     pm = CBCNN(num_classes=5, stage=stage, output_channel=64,
                backbone_name="vgg11", dtype=torch.float32)
     load_jax_variables(pm, variables)
@@ -49,8 +50,8 @@ def test_cbcnn_logits_and_gradients_match_jax(stage):
         out = jm.apply({**variables, "params": params}, jnp.asarray(x), train=True)
         return ce(out["logits"], y), out["logits"]
 
-    (_, logits_j), g_j = jax.device_get(jax.value_and_grad(
-        loss_fn, has_aux=True)(variables["params"]))
+    (_, logits_j), g_j = jax.device_get(jax.jit(jax.value_and_grad(
+        loss_fn, has_aux=True))(variables["params"]))
     pm.train()
     out = pm(torch.from_numpy(x))
     assert out["features"].shape == (2, 64)

@@ -1,6 +1,7 @@
 """The port's MPN (hawkeye_tpu_torch/models/methods/mpn.py) against the
 JAX package's on the CPU: one train-mode step (batch statistics, ``dr_bn``
-folded into its running statistics) from bridged weights, resnet18 with
+folded into its running statistics) from the port's init carried to JAX
+by the bridge (``port_init``), resnet18 with
 ``dimension_reduction`` 16, also with ``is_sqrt``/``is_vec`` off and with
 the two-bmm iteration. The input is 96x96, a 3x3 ``c5`` map.
 
@@ -24,18 +25,21 @@ from hawkeye_tpu.models.methods.mpn import MPN as JaxMPN
 from hawkeye_tpu_torch.models import export_jax_variables, load_jax_variables
 from hawkeye_tpu_torch.models.methods.mpn import MPN
 from test_torch_highorder_methods import ce
-from test_torch_resnet import _assert_close_scaled, _port_grads, _with_stats
+from test_torch_resnet import _assert_close_scaled, _port_grads, _with_stats, port_init
 
 
 def mpn_step(name, **kw):
     dtype, f64 = "float64", True
     x = np.random.RandomState(1).randn(2, 96, 96, 3)
     y = np.array([1, 3])
+    pm = MPN(num_classes=5, backbone_name=name, dtype=getattr(torch, dtype), **kw)
+    if f64:  # the float32 head reads the float32 covariance
+        pm.backbone.to(torch.float64)
+        pm.dr_bn.to(torch.float64)
+    variables = _with_stats(port_init(pm, 2), 3)
     with jax.enable_x64(f64):
         jm = JaxMPN(num_classes=5, backbone_name=name,
                     dtype=jnp.float64 if f64 else jnp.float32, **kw)
-        variables = _with_stats(jm.init(jax.random.PRNGKey(2),
-                                        jnp.asarray(x, jnp.float32)), 3)
 
         def loss_fn(p):
             out, mut = jm.apply({"params": p, "batch_stats": variables["batch_stats"]},
@@ -45,10 +49,6 @@ def mpn_step(name, **kw):
 
         (_, (logits_j, stats_j)), g_j = jax.device_get(jax.jit(
             jax.value_and_grad(loss_fn, has_aux=True))(variables["params"]))
-    pm = MPN(num_classes=5, backbone_name=name, dtype=getattr(torch, dtype), **kw)
-    if f64:  # the float32 head reads the float32 covariance
-        pm.backbone.to(torch.float64)
-        pm.dr_bn.to(torch.float64)
     load_jax_variables(pm, variables)
     pm.train()
     logits = pm(torch.from_numpy(x).to(getattr(torch, dtype)))["logits"]

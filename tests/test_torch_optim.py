@@ -128,7 +128,7 @@ def test_build_criterion_defaults_to_smoothed_ce():
     assert build_criterion(ConfigNode({"name": "CrossEntropyLoss",
                                        "label_smoothing": 0.0})).label_smoothing == 0.0
     with pytest.raises(KeyError):  # a loss not ported yet
-        build_criterion(ConfigNode({"name": "NTSLoss"}))
+        build_criterion(ConfigNode({"name": "MGELoss"}))
 
 
 def test_prefix_param_groups_label_like_make_prefix_labeler():

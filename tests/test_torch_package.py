@@ -175,6 +175,14 @@ RECIPES = {
                             {"backbone", "grouping", "attconv_0", "attconv_1",
                              "attconv_out", "attconv_bn", "post_0", "post_1",
                              "post_2", "post_3", "groupingbn", "mylinear"}),
+    "NTSNet.yaml": ("NTSNet", "NTSLoss", "NTSNet",
+                    {"backbone", "fc", "proposal_net", "concat_net", "partcls_net"}),
+    "APCNN.yaml": ("APCNN", "APCNNLoss", "APCNN",
+                   {"conv1", "bn1", "p5_master", "p5_gpb", "p5_2", "p4_1", "p4_2",
+                    "p3_1", "p3_2", "cls3", "cls4", "cls5", "cls_concate"}
+                   | {f"a{lvl}_{k}" for lvl in (3, 4, 5) for k in ("spatial", "ch1", "ch2")}
+                   | {f"layer{i}_{j}" for i, n in enumerate((3, 4, 6, 3), 1)
+                      for j in range(n)}),
 }
 
 
@@ -207,6 +215,13 @@ def test_recipe_builds_on_cpu_with_its_registered_names(name):
     if cfg.model.name == "CIN":
         assert model.gate_fc.in_features == 2 * 7 * 7 * 2048
         assert model.pair_head.weight.shape == (512, 7 * 7 * 2048)
+    if cfg.model.name == "NTSNet":  # 426 anchors at 224x224, one score each
+        assert model.edge_anchors.shape == (426, 4) and model.adjacency.shape == (426, 426)
+        assert model.concat_net.in_features == 5 * 2048 and model.proposal_num == 6
+        assert type(model.backbone.bn1).__name__ == "GroupedBatchNorm"
+    if cfg.model.name == "APCNN":  # 56x56, 28x28 and 14x14 grids at 448x448
+        assert [getattr(model, f"anchors{i}").shape[0] for i in range(3)] == [3136, 784, 196]
+        assert model.cls3.fc1.out_features == 512
     if cfg.model.name == "IP_ResNet101":
         assert [len(n) for n in model.backbone.stage_names] == [3, 4, 23]
         assert model.grouping.weight.shape == (int(cfg.model.num_parts), 1024)

@@ -1,7 +1,9 @@
 """The port's BatchNorm, ResNet family, Baseline registrations and weight
 bridge (hawkeye_tpu_torch/models) against the JAX package at small size,
-float32 on both sides, with the JAX variables (parameters and batch
-statistics) carried across by the bridge. Eval-mode stage dicts rtol 1e-4 /
+float32 on both sides, with the variables (parameters and batch
+statistics) carried across by the bridge: the port's init
+(``port_init``, so that no JAX init runs) for the eval and stem
+comparisons, the JAX init for the bridge's round trip. Eval-mode stage dicts rtol 1e-4 /
 atol 1e-5; BatchNorm alone rtol 1e-5. One train step is in
 ``test_torch_resnet_train.py``.
 
@@ -25,7 +27,11 @@ from hawkeye_tpu.registry import BACKBONE as JAX_BACKBONE
 from hawkeye_tpu.registry import MODEL as JAX_MODEL
 from hawkeye_tpu_torch import BACKBONE, MODEL
 from hawkeye_tpu_torch.config import ConfigNode
-from hawkeye_tpu_torch.models import export_jax_variables, load_jax_variables
+from hawkeye_tpu_torch.models import (
+    export_jax_variables,
+    init_parameters,
+    load_jax_variables,
+)
 from hawkeye_tpu_torch.models.backbones.norm import BatchNorm
 from hawkeye_tpu_torch.models.backbones.resnet import feature_dim
 from hawkeye_tpu_torch.models.methods.baseline import BaselineClassifier
@@ -36,6 +42,19 @@ NAMES = ["resnet18", "resnet50", "resnext50_32x4d"]
 def _leaves(tree):
     return {jax.tree_util.keystr(k): np.asarray(v)
             for k, v in jax.tree_util.tree_leaves_with_path(tree)}
+
+
+def port_init(pm, seed):
+    """The port model ``pm`` initialised by the port (``init_parameters``
+    from ``seed``), in the flax layout: the variables a comparison hands to
+    the JAX model, so that no JAX init runs (op by op, a process's first JAX
+    init of a ResNet compiles each primitive: ~10-20 s on the CPU). The model
+    takes them back, so a parameter it holds in float64 has the float32 value
+    JAX reads."""
+    init_parameters(pm, torch.Generator().manual_seed(seed))
+    variables = export_jax_variables(pm)
+    load_jax_variables(pm, variables)
+    return variables
 
 
 def _with_stats(variables, seed):
@@ -110,10 +129,10 @@ def test_batchnorm_matches_flax(momentum):
 def test_resnet_eval_stages_match_jax(name):
     x = np.random.RandomState(2).randn(2, 64, 64, 3).astype(np.float32)
     jm = JAX_BACKBONE.get(name)(num_classes=0, dtype=jnp.float32)
-    variables = _with_stats(jm.init(jax.random.PRNGKey(0), jnp.asarray(x)), 3)
+    pm = BACKBONE.get(name)(num_classes=0, dtype=torch.float32)
+    variables = _with_stats(port_init(pm, 0), 3)
     out_j = jax.jit(lambda v, xx: jm.apply(v, xx, train=False))(variables, x)
 
-    pm = BACKBONE.get(name)(num_classes=0, dtype=torch.float32)
     load_jax_variables(pm, variables)
     pm.eval()
     with torch.no_grad():
@@ -130,11 +149,11 @@ def test_stem_space_to_depth_matches_the_port(s2d):
     x = np.random.RandomState(7).randn(2, 32, 32, 3).astype(np.float32)
     jm = JaxBaseline(backbone_name="resnet18", num_classes=3, dtype=jnp.float32,
                      stem_space_to_depth=s2d)
-    variables = _with_stats(jm.init(jax.random.PRNGKey(8), jnp.asarray(x)), 9)
-    want = jm.apply(variables, x, train=False)["logits"]
     # the port runs the plain 7x7/2 conv whatever the key says
     pm = MODEL.get("ResNet18")(ConfigNode({"num_classes": 3, "dtype": "float32",
                                            "stem_space_to_depth": s2d}))
+    variables = _with_stats(port_init(pm, 8), 9)
+    want = jm.apply(variables, x, train=False)["logits"]
     load_jax_variables(pm, variables)
     pm.eval()
     with torch.no_grad():

@@ -1,6 +1,6 @@
 """One train step of the port's Baseline ResNets against the JAX package
-(hawkeye_tpu_torch/models), with the JAX variables carried across by the
-bridge: logits rtol 1e-4 / atol 1e-5; parameter gradients rtol 1e-3 with an
+(hawkeye_tpu_torch/models), from the port's init carried to JAX by the
+bridge (``port_init``): logits rtol 1e-4 / atol 1e-5; parameter gradients rtol 1e-3 with an
 atol of 1e-3 of each tensor's largest gradient (conv summation order differs
 between XLA and PyTorch on the CPU); the mutated running statistics rtol
 1e-5 with an atol of 1e-5 of each tensor's largest value (a batch mean near
@@ -24,7 +24,7 @@ import hawkeye_tpu_torch.models  # noqa: F401
 from hawkeye_tpu.models.methods.baseline import BaselineClassifier as JaxBaseline
 from hawkeye_tpu_torch.models import export_jax_variables, load_jax_variables
 from hawkeye_tpu_torch.models.methods.baseline import BaselineClassifier
-from test_torch_resnet import _assert_close_scaled, _port_grads, _with_stats
+from test_torch_resnet import _assert_close_scaled, _port_grads, _with_stats, port_init
 
 
 @pytest.mark.parametrize("name,dtype", [("resnet18", "float32"),
@@ -37,11 +37,12 @@ def test_train_step_matches_jax(name, dtype):
     x = np.random.RandomState(0).randn(2, 64, 64, 3)
     y = np.array([1, 3])
     f64 = dtype == "float64"
+    pm = BaselineClassifier(name, 5, dtype=getattr(torch, dtype))
+    pm.backbone.to(getattr(torch, dtype))  # the float32 head reads a float32 pool
+    variables = _with_stats(port_init(pm, 1), 2)
     with jax.enable_x64(f64):
         jm = JaxBaseline(backbone_name=name, num_classes=5,
                          dtype=jnp.float64 if f64 else jnp.float32)
-        variables = _with_stats(jm.init(jax.random.PRNGKey(1),
-                                        jnp.asarray(x, jnp.float32)), 2)
 
         def loss_fn(p):
             out, mut = jm.apply({"params": p,
@@ -54,8 +55,6 @@ def test_train_step_matches_jax(name, dtype):
         (_, (logits_j, stats_j)), g_j = jax.device_get(jax.jit(
             jax.value_and_grad(loss_fn, has_aux=True))(variables["params"]))
 
-    pm = BaselineClassifier(name, 5, dtype=getattr(torch, dtype))
-    pm.backbone.to(getattr(torch, dtype))  # the float32 head reads a float32 pool
     load_jax_variables(pm, variables)
     pm.train()
     logits = pm(torch.from_numpy(x).to(getattr(torch, dtype)))["logits"]

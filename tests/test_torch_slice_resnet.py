@@ -20,11 +20,11 @@ from hawkeye_tpu.engine import Trainer as JaxTrainer
 from hawkeye_tpu.models.methods.baseline import BaselineClassifier as JaxBaseline
 from hawkeye_tpu_torch.config import setup_config
 from hawkeye_tpu_torch.engine import Trainer
-from hawkeye_tpu_torch.models import export_jax_variables, load_jax_variables
+from hawkeye_tpu_torch.models import export_jax_variables
 from hawkeye_tpu_torch.models.methods.baseline import BaselineClassifier
 from test_torch_resnet import _assert_close_scaled
 from test_torch_tester import SLICE, _recipe
-from test_torch_trainer import _assert_updates_close
+from test_torch_trainer import _assert_updates_close, from_port
 
 
 class JaxF64Trainer(JaxTrainer):
@@ -54,17 +54,15 @@ def test_device_pipeline_step_matches_jax_trainer(tmp_path):
     test_torch_resnet_train.py. The augmentation runs as the JAX Trainer's
     first step runs it, in float32, with that step's key."""
     path = _recipe(tmp_path, SLICE)
-    with jax.enable_x64(True):
-        jt = JaxF64Trainer(jax_setup_config(argv=["--config", path]))
     pt = PortF64Trainer(setup_config(argv=["--config", path]), device="cpu")
+    with jax.enable_x64(True):  # from the port's init (no JAX init compiles)
+        jt = from_port(JaxF64Trainer, pt.model)(jax_setup_config(argv=["--config", path]))
     assert len(pt.dataloaders["train"]) == len(jt.dataloaders["train"]) == 1
     host = next(iter(jt.dataloaders["train"]))
     assert host["img"].dtype == np.uint8 and host["img"].shape == (8, 40, 40, 3)
     key = jax.random.fold_in(jax.random.fold_in(jax.random.PRNGKey(jt.seed), 0), 1)
     jt.augmented = pt.augmented = np.array(jt.device_augment(key, host["img"]))
     with jax.enable_x64(True):
-        load_jax_variables(pt.model, {k: jax.device_get(v) for k, v in
-                                      jt.model_variables().items()})
         jax_before = jax.device_get(jt.state.params)
         port_before = export_jax_variables(pt.model)["params"]
 

@@ -1,13 +1,12 @@
 """The port's Tester (hawkeye_tpu_torch/engine/tester.py) against the JAX
-Tester on the CPU: the same top-1 from bridged weights, with either
+Tester on the CPU: the same top-1 from the same weights (the port's init,
+carried to JAX by the bridge), with either
 pipeline; and the port's Trainer with ``dataset.pipeline: device`` on its
 own draws, whose best model the Tester reads back. The step against the
 JAX Trainer is in test_torch_slice_resnet.py."""
 
 import os
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -18,13 +17,12 @@ import hawkeye_tpu_torch.models  # noqa: F401
 from hawkeye_tpu.config import setup_config as jax_setup_config
 from hawkeye_tpu.engine import Tester as JaxTester
 from hawkeye_tpu.engine import checkpoint as jax_ckpt
-from hawkeye_tpu.models.methods.baseline import BaselineClassifier as JaxBaseline
 from hawkeye_tpu_torch.config import setup_config
 from hawkeye_tpu_torch.engine import Tester, Trainer
 from hawkeye_tpu_torch.engine import checkpoint as ckpt
 from hawkeye_tpu_torch.models import load_jax_variables
 from hawkeye_tpu_torch.models.methods.baseline import BaselineClassifier
-from test_torch_resnet import _with_stats
+from test_torch_resnet import _with_stats, port_init
 
 CONFIGS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "configs")
@@ -84,11 +82,10 @@ def test_device_pipeline_trains_and_the_tester_reads_its_best_model(tmp_path):
 
 @pytest.mark.parametrize("pipeline", ["host", "device"])
 def test_tester_matches_jax_tester(tmp_path, pipeline):
-    jm = JaxBaseline(backbone_name="resnet18", num_classes=5, dtype=jnp.float32)
-    variables = _with_stats(jm.init(jax.random.PRNGKey(4), jnp.zeros((1, 32, 32, 3))), 5)
+    pm = BaselineClassifier("resnet18", 5, dtype=torch.float32)
+    variables = _with_stats(port_init(pm, 4), 5)
     weights = str(tmp_path / "weights.msgpack")
     jax_ckpt.save_model(weights, variables)
-    pm = BaselineClassifier("resnet18", 5, dtype=torch.float32)
     load_jax_variables(pm, variables)
     ckpt.save_model(weights, pm)  # weights.pt beside it
 

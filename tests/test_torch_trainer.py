@@ -1,7 +1,8 @@
 """The slice as a whole: the port's Trainer (hawkeye_tpu_torch/engine)
 against the JAX package's Trainer on the same tiny BCNN recipe (vgg11,
-synthetic data, 64 px, batch 4), float32 on both sides, weights bridged
-from the JAX init. One stage-2 step and two stage-1 steps go through each
+synthetic data, 64 px, batch 4), float32 on both sides, the JAX trainer
+starting from the port's init through the bridge (``from_port``, so no JAX
+init runs). One stage-2 step and two stage-1 steps go through each
 trainer's own train step on the same host batch; the loss must agree to
 rtol 1e-4 and every parameter's update (new - old) to rtol 1e-3, with an
 atol of 1e-3 of the tensor's largest update (float32 summation order) plus
@@ -102,11 +103,20 @@ def _assert_updates_close(port_before, port_after, jax_before, jax_after):
         assert not bad.any(), (k, got[bad][:5], want[bad][:5])
 
 
+def from_port(jax_cls, model):
+    """``jax_cls`` whose initial variables are the port ``model``'s, through
+    the bridge: no JAX init compiles. The model takes them back, so a
+    parameter initialised in float64 holds the same float32 value as JAX's."""
+    variables = export_jax_variables(model)
+    load_jax_variables(model, variables)
+    return type(jax_cls.__name__, (jax_cls,),
+                {"init_model_variables": lambda self: variables})
+
+
 def _pair(tmp_path, name, overrides):
     path = _tiny_recipe_path(name, tmp_path, overrides)
-    jt = JaxF32Trainer(jax_setup_config(argv=["--config", path]))
     pt = PortF32Trainer(setup_config(argv=["--config", path]), device="cpu")
-    load_jax_variables(pt.model, {"params": jax.device_get(jt.state.params)})
+    jt = from_port(JaxF32Trainer, pt.model)(jax_setup_config(argv=["--config", path]))
     return jt, pt
 
 

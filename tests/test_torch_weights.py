@@ -10,6 +10,7 @@ from scratch" and keeps the init, in both; a .msgpack name reads the port's
 does. No weight file is in the repository: every file here is made by the
 test."""
 
+import copy
 import os
 import re
 
@@ -66,9 +67,22 @@ def torchvision_state_dict(model, seed, fc_classes=1000):
     return sd
 
 
+_INITIALISED = {}  # (backbone, seed) -> model, made once per module
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _release_models():
+    yield
+    _INITIALISED.clear()
+
+
 def _model(backbone="resnet18", seed=0):
-    m = BaselineClassifier(backbone, 5, dtype=torch.float32)
-    return init_parameters(m, torch.Generator().manual_seed(seed))
+    """A fresh copy of the seeded model: each (backbone, seed) is
+    initialised once in this module (a ResNet-50's init takes seconds)."""
+    if (backbone, seed) not in _INITIALISED:
+        m = BaselineClassifier(backbone, 5, dtype=torch.float32)
+        _INITIALISED[backbone, seed] = init_parameters(m, torch.Generator().manual_seed(seed))
+    return copy.deepcopy(_INITIALISED[backbone, seed])
 
 
 def _assert_trees_equal(got, want):
