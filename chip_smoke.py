@@ -184,6 +184,34 @@ exits non-zero:
     rows) and ``apcnn_train_images_per_sec`` (batch 8 at 448x448) as phase
     13 times them, on ``profile_step``'s trainer and batches, no kernel
     launch.
+23. reference_s3n_mge: S3N (ResNet-18, 128x128, batch 4, fused warp pass) at
+    each phase p = 0, 1, 2 (phase 1's uniform draws fixed) and MGE-CNN
+    (four ResNet-18s, 64x64, batch 4; a train step with the labels, then an
+    eval forward whose CAMs follow each expert's argmax), 200 classes, on
+    the card against the CPU, one train-mode step through each method's
+    loss, BatchNorm scales and biases at random, TF32 off: with the whole
+    model in float64, logits, every gradient and every running statistic
+    within 1e-8 of the tensor's largest value, S3N's zoom and inverse peak
+    masks and MGE's crop boxes identical; S3N's two-pass form on the card
+    against its fused pass to the same 1e-8 at each phase; the float32
+    readings are printed.
+24. slice_s3n_mge: S3N through its Example trainer at ``configs/S3N.yaml``'s
+    shape (ResNet-50, 448x448, batch 8, bf16, SGD; the classifiers at 1x,
+    the radii and the blur kernel at 1e-5x, the rest at 0.1x the LR): one
+    train step and a validation at epoch 0 (train phase 0, validation phase
+    1), then at epoch 20 (1 and 2); MGE-CNN at ``configs/MGE_CNN.yaml``'s
+    (four ResNet-50s, 224x224, batch 4, Adam, the backbones at 0.1x), one
+    epoch of four steps with validation; synthetic data, 200 classes. The
+    Tester on each best model (its top-1 equal to the trained model's at
+    the Tester's call, S3N's phase 0; logits equal to the trained
+    model's); finite losses; every kernel's launch count 0; one train
+    forward and backward of each under
+    ``torch.cuda.set_sync_debug_mode("error")``.
+25. throughput_s3n_mge: ``s3n_train_images_per_sec`` (batch 8 at 448x448,
+    a phase-1 step) and ``mge_cnn_train_images_per_sec`` (batch 4 at
+    224x224) as phase 13 times them, with the peak memory, and the device
+    idle share and kernel time by category of ``profile_step``'s profile
+    of 5 steps (``saliency``, ``warp``, ``cam_crop``), no kernel launch.
 
 Then a ``kernels`` JSON line (pool kernels at batch 8; the Gram at batch
 128, where its 134 MB output cannot stay in the 50 MB L2 between replays;
@@ -1023,13 +1051,14 @@ def _train_stage(torch, trainer_cls, config, run_dir, overrides, want=None,
 ZERO_LAUNCHES = {"pool_fwd": 0, "pool_bwd": 0, "gram_signed_sqrt": 0}
 
 
-def _tester_matches(torch, trainer, config, run_dir, over):
+def _tester_matches(torch, trainer, config, run_dir, over, want_top1=None):
     """The Tester on the trainer's best model and val split: its top-1 must
-    be the trainer's best val accuracy, and its logits on the first val
-    batch the trained model's in memory, so that the hold covers save and
-    load. Only where an earlier epoch than the last was the best (the
-    trainer saves the last of equal bests) does the trainer's model first
-    load the saved best. Launches must stay 0."""
+    be the trainer's best val accuracy (or ``want_top1``, where the
+    trainer's validation calls the model otherwise than the Tester), and its
+    logits on the first val batch the trained model's in memory, so that the
+    hold covers save and load. Only where an earlier epoch than the last was
+    the best (the trainer saves the last of equal bests) does the trainer's
+    model first load the saved best. Launches must stay 0."""
     from hawkeye_tpu_torch.config import setup_config
     from hawkeye_tpu_torch.engine import Tester
     from hawkeye_tpu_torch.engine import checkpoint as ckpt
@@ -1040,6 +1069,8 @@ def _tester_matches(torch, trainer, config, run_dir, over):
     val_acc = meter.best_value
     if meter.values[-1] != val_acc:
         ckpt.load_model(best, trainer.model)
+    if want_top1 is not None:
+        val_acc = want_top1
     val = trainer.prepare_batch(next(iter(trainer.dataloaders["val"])), train=False)
     if trainer.pipeline == "device":
         val = trainer.device_prepare_eval(val)
@@ -1873,18 +1904,25 @@ def check_reference_region(torch):
                      "float64_pick_rows_differing": 0})
 
 
-def _no_host_sync(torch, trainer):
+def _no_host_sync(torch, trainer, forward=None):
     """One train forward and backward of the trainer's model under
     ``torch.cuda.set_sync_debug_mode("error")``: any call that waits for
-    the device raises. The batch is on the card before the mode is set."""
+    the device raises. The batch is on the card before the mode is set.
+    ``forward(batch)`` gives the outputs; by default the model takes the
+    images and the trainer's model generator."""
     batch = trainer.prepare_batch(next(iter(trainer.dataloaders["train"])), train=True)
-    generator = trainer.model_generator()
+    if forward is None:
+        generator = trainer.model_generator()
+
+        def forward(b):
+            return trainer.model(b["img"], generator=generator)
+
     trainer.model.train()
     trainer.optimizer.zero_grad(set_to_none=True)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        out = trainer.model(batch["img"], generator=generator)
+        out = forward(batch)
         trainer.criterion(out, batch).backward()
     finally:
         torch.cuda.set_sync_debug_mode("default")
@@ -1948,6 +1986,252 @@ def run_region(torch, run_dir):
                    phase="throughput_region", counts=note)
 
 
+# ----------------------------------------------------------------------------
+# phases 23-25: S3N and MGE-CNN: the card against the CPU, their Example
+# trainers, their train rates
+# ----------------------------------------------------------------------------
+# card against CPU, relative to each tensor's largest value, the whole model
+# in float64: logits, gradients and running statistics (held, with the peak
+# masks and the boxes identical); float32 printed
+S3N_MGE_F64_TOL = 1e-8
+# recipe -> batch; the config, Example module and trainer class are
+# profile_step's
+S3N_MGE_BATCHES = {"s3n": 8, "mge": 4}
+
+
+def _s3n_mge_case(torch, name, dtype, dev, p=0, fused=True):
+    """One train-mode forward and backward of S3N at phase ``p`` (its draws
+    ``u`` from a seeded CPU generator) or MGE-CNN with the labels, then
+    MGE-CNN's eval forward (each expert's argmax picks the CAM's class):
+    ResNet-18 trunks, 64x64 (S3N 128x128), 200 classes, batch 4, BatchNorm scales and
+    biases at random, on ``dev``: (logits, {parameter: gradient}, {buffer:
+    running statistic}, the picks: S3N's zoom and inverse peak masks, MGE's
+    boxes per crop). S3N runs at 128x128 (a 4x4 c5: several peaks)."""
+    from hawkeye_tpu_torch.losses.mge import MGELoss
+    from hawkeye_tpu_torch.losses.s3n import MultiSmoothLoss
+    from hawkeye_tpu_torch.models import init_parameters
+    from hawkeye_tpu_torch.models.methods import mge
+    from hawkeye_tpu_torch.models.methods.s3n import S3N
+
+    size = 128 if name == "s3n" else 64  # S3N: a 4x4 c5, so several peaks
+    if name == "s3n":
+        m = S3N(200, image_size=size, backbone_name="resnet18", dtype=dtype,
+                fused_warp_pass=fused)
+    else:
+        m = mge.MGECNN(200, image_size=size, backbone_name="resnet18", dtype=dtype)
+    gen = torch.Generator().manual_seed(41)
+    init_parameters(m, gen)
+    _bn_at_random(torch, m, gen)
+    if dtype == torch.float64:
+        m.double()
+    m.to(dev).train()
+    x = torch.randn((4, size, size, 3), generator=torch.Generator().manual_seed(42)).to(dev, dtype)
+    y = torch.tensor([3, 77, 150, 3], device=dev)
+    picks = []
+    if name == "s3n":
+        real = m._peaks
+        m._peaks = lambda *a: picks.append(real(*a)) or picks[-1]
+        u = torch.rand((4, 31, 31), generator=torch.Generator().manual_seed(43)).to(dev)
+        out = m(x, p=p, u=u)
+        MultiSmoothLoss()(out, {"label": y}).backward()
+        picks = [t.cpu() for pair in picks for t in pair]
+        logits = out["logits"]
+    else:
+        real = mge.cam_bbox
+
+        def record(*a):
+            crops, boxes = real(*a)
+            picks.append(boxes.cpu())
+            return crops, boxes
+
+        mge.cam_bbox = record
+        try:
+            out = m(x, labels=y)
+            MGELoss()(out, {"label": y}).backward()
+            with torch.no_grad():
+                logits = torch.cat([out["all_logits"].detach().reshape(-1, 200),
+                                    m.eval()(x)["all_logits"].reshape(-1, 200)])
+        finally:
+            mge.cam_bbox = real
+    grads = {n: p_.grad.detach().double().cpu() for n, p_ in m.named_parameters()}
+    stats = {n: b.detach().double().cpu() for n, b in m.named_buffers() if "running" in n}
+    return logits.detach().double().cpu(), grads, stats, picks
+
+
+def check_reference_s3n_mge(torch):
+    """S3N at each phase (fused warp pass) and MGE-CNN (train with labels,
+    then eval) on the card against the CPU, TF32 off; and S3N's two-pass
+    form against its fused pass on the card."""
+    from hawkeye_tpu_torch.engine.trainer import set_tf32
+
+    set_tf32(False)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+    def compare(a, b):
+        (la, ga, sa, pa), (lb, gb, sb, pb) = a, b
+        errs = {n: rel(ga[n], gb[n]) for n in gb}
+        worst = max(errs, key=errs.get)
+        return {"logits": rel(la, lb), "grad_max": errs[worst], "grad_worst": worst,
+                "stats_max": max(rel(sa[n], sb[n]) for n in sb),
+                "picks_differing": sum(int(not torch.equal(p, q)) for p, q in zip(pa, pb)),
+                "picks": len(pb),
+                # S3N: the zoom and inverse masks' peak counts; MGE: the boxes
+                "pick_summary": [int(q.sum()) if q.dtype == torch.bool else q.tolist()
+                                 for q in pb]}
+
+    report, card64 = {}, {}
+    for name, p in (("s3n_p0", 0), ("s3n_p1", 1), ("s3n_p2", 2), ("mge", 0)):
+        model = name.split("_")[0]
+        row = {}
+        for label, dtype in (("float64", torch.float64), ("float32", torch.float32)):
+            cpu, card = (_s3n_mge_case(torch, model, dtype, dev, p) for dev in ("cpu", "cuda"))
+            row[label] = compare(card, cpu)
+            if label == "float64":
+                card64[name] = card
+        report[name] = row
+        f64 = row["float64"]
+        if (max(f64["logits"], f64["grad_max"], f64["stats_max"]) > S3N_MGE_F64_TOL
+                or f64["picks_differing"] != 0 or f64["picks"] == 0):
+            raise AssertionError(f"card vs CPU {name}: {row}")
+    two_pass = {}
+    for p in (0, 1, 2):
+        row = compare(_s3n_mge_case(torch, "s3n", torch.float64, "cuda", p, fused=False),
+                      card64[f"s3n_p{p}"])
+        two_pass[f"p{p}"] = row
+        if (max(row["logits"], row["grad_max"], row["stats_max"]) > S3N_MGE_F64_TOL
+                or row["picks_differing"] != 0):
+            raise AssertionError(f"S3N two-pass vs fused on the card, p={p}: {row}")
+    emit("reference_s3n_mge", model="S3N resnet18 128x128 b4 at p=0/1/2 (p=1's draws "
+         "fixed), fused warp pass; MGE-CNN four resnet18 64x64 b4, train with labels "
+         "then eval; 200 classes, one train-mode step through each method's loss, "
+         "BatchNorm at random; TF32 off",
+         rel_err_of_max=report, s3n_two_pass_vs_fused_card_float64=two_pass,
+         tolerances={"float64": S3N_MGE_F64_TOL, "float64_picks_differing": 0})
+
+
+def _eval_top1(torch, trainer, **kw):
+    """The trainer's model's top-1 on its val split, in eval mode, called
+    with ``kw``."""
+    correct = count = 0
+    model = trainer.model.eval()
+    with torch.no_grad():
+        for batch in trainer.dataloaders["val"]:
+            b = trainer.prepare_batch(batch, train=False)
+            pred = model(b["img"], **kw)["logits"].argmax(-1)
+            correct += int((pred == b["label"]).sum())
+            count += int(b["label"].numel())
+    return 100.0 * correct / max(count, 1)
+
+
+def run_s3n_mge(torch, run_dir):
+    """slice_s3n_mge and throughput_s3n_mge: S3N through its Example
+    trainer at epoch 0 (train phase 0, validation phase 1) and at epoch 20
+    (1 and 2), MGE-CNN through its for one epoch; the Tester on each best
+    model; a train forward and backward of each with no host sync; then
+    their train rates, peak memory and device idle share. Every kernel's
+    launch count must stay 0."""
+    import importlib
+
+    from hawkeye_tpu_torch.engine import checkpoint as ckpt
+    from hawkeye_tpu_torch.ops import LAUNCHES, reset_launches
+    from hawkeye_tpu_torch.profile_step import _RECIPES, bench_trainer, profile_batch
+
+    for name, batch in S3N_MGE_BATCHES.items():
+        config, module, cls, size = _RECIPES[name]
+        trainer_cls = getattr(importlib.import_module(
+            f"hawkeye_tpu_torch.examples.{module}"), cls)
+        n_steps = 1 if name == "s3n" else 4
+        over = {"experiment": {"log_dir": run_dir},
+                "dataset": {"name": "synthetic", "length": n_steps * batch,
+                            "num_workers": 8, "num_classes": 200},
+                "model": {"num_classes": 200}, "train": {"epoch": 1}}
+        fields = {}
+        if name == "s3n":
+            over["train"]["epoch"] = 21
+            phases = []
+
+            def prepare(tr):
+                tr.total_epoch = 1  # epoch 0 first; epoch 20 below
+                real = tr.apply_model
+
+                def apply_model(batch, train):
+                    phases.append((tr.epoch, train, tr.train_phase() if train
+                                   else tr.eval_phase()))
+                    return real(batch, train)
+
+                tr.apply_model = apply_model
+
+            tr, rep0 = _train_stage(torch, trainer_cls, config, run_dir, over,
+                                    ZERO_LAUNCHES, prepare=prepare)
+            reset_launches()
+            tr.start_epoch, tr.total_epoch = 20, 21
+            tr.train()
+            torch.cuda.synchronize()
+            rep = dict(tr.last_report, launches=dict(LAUNCHES), train_steps=tr.step)
+            if dict(LAUNCHES) != ZERO_LAUNCHES or not all(
+                    math.isfinite(rep[k]) for k in ("train_loss", "val_loss")):
+                raise AssertionError(f"{config} epoch 20: {rep}")
+            want_phases = [(0, True, 0), (0, False, 1), (20, True, 1), (20, False, 2)]
+            if sorted(set(phases)) != sorted(want_phases):
+                raise AssertionError(f"{config}: (epoch, train, phase) {sorted(set(phases))}")
+            groups = {g["label"]: g["lr"] for g in tr.optimizer.param_groups}
+            if (abs(groups["slow"] / groups["cls"] - 1e-5) > 1e-12
+                    or abs(groups["base"] / groups["cls"] - 0.1) > 1e-12
+                    or tr.config.train.optimizer.name != "SGD"
+                    or not tr.model.fused_warp_pass):
+                raise AssertionError(f"S3N group LRs {groups}, {tr.config.train.optimizer}")
+            fields.update(epoch0=rep0, phases=want_phases, group_lrs=groups)
+            # the Tester calls the model at phase 0, as the JAX Tester does
+            meter = tr.performance_meters["val"]["acc"]
+            if meter.values[-1] != meter.best_value:  # the Tester's model
+                ckpt.load_model(os.path.join(tr.log_root, "best_model.msgpack"), tr.model)
+            top1 = _tester_matches(torch, tr, config, run_dir, over,
+                                   want_top1=_eval_top1(torch, tr))
+            gen = tr.model_generator()
+            no_sync = _no_host_sync(torch, tr, lambda b: tr.model(b["img"], p=1,
+                                                                   generator=gen))
+        else:
+            tr, rep = _train_stage(torch, trainer_cls, config, run_dir, over,
+                                   ZERO_LAUNCHES)
+            groups = {g["label"]: g["lr"] for g in tr.optimizer.param_groups}
+            if (abs(groups["extractor"] / groups["classifier"] - 0.1) > 1e-12
+                    or tr.config.train.optimizer.name != "Adam"):
+                raise AssertionError(f"MGE-CNN group LRs {groups}, {tr.config.train.optimizer}")
+            fields["group_lrs"] = groups
+            top1 = _tester_matches(torch, tr, config, run_dir, over)
+            no_sync = _no_host_sync(torch, tr, lambda b: tr.model(b["img"],
+                                                                   labels=b["label"]))
+        cfg = tr.config
+        if (int(cfg.dataset.transformer.image_size) != size
+                or int(cfg.dataset.batch_size) != batch):
+            raise AssertionError(f"{config}: {cfg.dataset.transformer.image_size}px "
+                                 f"batch {cfg.dataset.batch_size}")
+        del tr
+        torch.cuda.empty_cache()
+        emit("slice_s3n_mge", recipe=name, config=config, batch=batch, image_size=size,
+             tester_top1=top1, tester_logits_equal_trainer=True,
+             tester_launches=ZERO_LAUNCHES, train_forward_backward_no_host_sync=no_sync,
+             **fields, **rep)
+
+    for name, batch in S3N_MGE_BATCHES.items():
+        trainer = bench_trainer(name, run_dir, batch)
+        r = _train_rate(torch, trainer, name, batch)
+        del trainer
+        torch.cuda.empty_cache()
+        prof = profile_batch(name, batch, 5, run_dir)
+        note = ("the 8 images of a phase-1 step (epoch 20)" if name == "s3n"
+                else "the 4 images of a step, not its 16 backbone rows (three "
+                "experts and the gate)")
+        _emit_rate(torch, name if name == "s3n" else "mge_cnn", r,
+                   {k: 0.0 for k in ZERO_LAUNCHES}, phase="throughput_s3n_mge",
+                   counts=note, device_idle_share=prof["device_idle_share"],
+                   device_kernel_ms_per_step=prof["device_kernel_ms_per_step"],
+                   profiled_wall_ms_per_step=prof["wall_ms_per_step"],
+                   ms_per_step_by_category=prof["ms_per_step_by_category"])
+
+
 def main():
     import torch
 
@@ -2009,6 +2293,8 @@ def main():
         run_tree_dcl(torch, run_dir)
         check_reference_region(torch)
         run_region(torch, run_dir)
+        check_reference_s3n_mge(torch)
+        run_s3n_mge(torch, run_dir)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
 

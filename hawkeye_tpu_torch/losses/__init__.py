@@ -4,11 +4,12 @@ Counterpart of ``hawkeye_tpu/losses/__init__.py``. Criterion contract:
 ``criterion(outputs: dict, batch: dict) -> scalar loss`` where ``outputs``
 holds at least 'logits' and ``batch`` has 'label' (int [B]) or soft 'label'
 [B, C], and optionally a per-sample 'weight' [B]. The reference's default is
-``CrossEntropyLoss(label_smoothing=0.1)`` (``train.py:211-212``). Ported so
-far: the cross-entropy, ``PairwiseConfusionLoss``, ``PeerLearningLoss``,
+``CrossEntropyLoss(label_smoothing=0.1)`` (``train.py:211-212``). Every
+criterion of the JAX package is ported: the cross-entropy,
+``PairwiseConfusionLoss``, ``PeerLearningLoss``,
 ``MAMCLoss``, ``APINetLoss``, ``CINLoss``, ``CrossXLoss``,
-``InterpPartsLoss``, ``ProtoTreeLoss``, ``DCLLoss``, ``NTSLoss`` and
-``APCNNLoss``; S3N's and MGE-CNN's wait.
+``InterpPartsLoss``, ``ProtoTreeLoss``, ``DCLLoss``, ``NTSLoss``,
+``APCNNLoss``, ``MultiSmoothLoss`` (S3N) and ``MGELoss``.
 """
 
 from __future__ import annotations
@@ -68,10 +69,12 @@ def build_criterion(criterion_config):
         dcl,
         interp_parts,
         mamc,
+        mge,
         nts,
         pair_confusion,
         peer_learning,
         prototree,
+        s3n,
     )
 
     if criterion_config is None or "name" not in criterion_config:

@@ -11,6 +11,9 @@ kernel, and so does the port:
   product contracts the rows, its result rounds to ``dtype``, the second
   contracts the columns: JAX's order. AP-CNN's union-box crop of its
   stride-8 feature map is one of these.
+- ``resize_bilinear``: a full-image resize by the same products, with the
+  weights made once per shape as XLA folds the JAX package's constant boxes
+  (S3N's class maps and grids, MGE-CNN's CAM).
 - ``crop_resize_multibox``: M boxes per image from the one image, the M axis
   carried by the weight matrices (NTS-Net's part crops), in the same order.
 - ``grid_sample_bilinear``: general bilinear grid sampling by a 4-tap gather
@@ -23,6 +26,8 @@ default) unless asked otherwise. Images are NHWC.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -90,6 +95,14 @@ def crop_resize_bilinear(images, boxes, out_h: int, out_w: int, dtype=None,
                            align_corners)  # [B, ow, W]
     if flip_x_mask is not None:
         wx = torch.where(flip_x_mask[:, None, None], wx.flip(1), wx)
+    return _separable(imgs, wy, wx)
+
+
+def _separable(imgs, wy, wx):
+    """``Wy @ img @ Wx^T`` per image: imgs [B, H, W, C], wy [B, oh, H], wx
+    [B, ow, W] in the images' dtype."""
+    b, h, w, c = imgs.shape
+    out_h, out_w = wy.shape[1], wx.shape[1]
     # rows first, computed transposed: [B, W*C, H] @ [B, H, oh] -> [B, W*C, oh]
     # (both operands are transposed views; bmm reads them in place)
     tmp = torch.bmm(imgs.reshape(b, h, w * c).transpose(1, 2), wy.transpose(1, 2))
@@ -126,14 +139,44 @@ def crop_resize_multibox(images, boxes, out_h: int, out_w: int, dtype=None,
     return out.transpose(2, 3).contiguous()
 
 
+@functools.lru_cache(maxsize=None)
+def _full_image_weights(in_size: int, out_size: int, align_corners: bool,
+                        dtype: torch.dtype, device: torch.device):
+    """The weights [out_size, in_size] of a full-image resize, made on the
+    host once per shape. The JAX package's full-image boxes are constants,
+    which XLA folds: a true float32 division for the scale and one rounding
+    of the source coordinate (``j * scale``, or ``(j + 0.5) * scale - 0.5``),
+    an ulp from the runtime boxes' coordinates at some sizes (14 -> 31, 7 ->
+    224). The rest is ``_bilinear_weights``' float32 arithmetic."""
+    f32 = np.float32
+    j = np.arange(out_size, dtype=np.float64)
+    if align_corners:
+        scale = f32(f32(in_size - 1) / f32(max(out_size - 1, 1)))
+        src = (j * np.float64(scale)).astype(f32)
+    else:
+        scale = f32(f32(in_size) / f32(out_size))
+        src = ((j + 0.5) * np.float64(scale) - 0.5).astype(f32)
+    src = np.clip(src, f32(0), f32(in_size - 1))
+    i0 = np.floor(src)
+    frac = src - i0
+    i = np.arange(in_size, dtype=f32)[None, :]
+    w0 = np.clip(f32(1) - np.abs(i - i0[:, None]), f32(0), f32(1)) * (f32(1) - frac)[:, None]
+    w1 = np.clip(f32(1) - np.abs(i - (i0[:, None] + f32(1))), f32(0), f32(1)) * frac[:, None]
+    w = w0 + w1
+    w = w / np.maximum(w.sum(-1, keepdims=True), f32(1e-6))
+    return torch.from_numpy(w).to(device=device, dtype=dtype)
+
+
 def resize_bilinear(images, out_h: int, out_w: int, dtype=None,
                     align_corners=False):
-    """Plain full-image resize."""
+    """Plain full-image resize, with the weights the JAX package's jitted
+    function uses (``_full_image_weights``)."""
     b, h, w, _ = images.shape
-    boxes = device_constant((0.0, 0.0, float(h), float(w)), torch.float32,
-                            images.device).expand(b, 4)
-    return crop_resize_bilinear(images, boxes, out_h, out_w, dtype=dtype,
-                                align_corners=align_corners)
+    if dtype is None:
+        dtype = images.dtype if images.is_floating_point() else torch.float32
+    wy = _full_image_weights(h, out_h, bool(align_corners), dtype, images.device)
+    wx = _full_image_weights(w, out_w, bool(align_corners), dtype, images.device)
+    return _separable(images.to(dtype), wy.expand(b, -1, -1), wx.expand(b, -1, -1))
 
 
 def grid_sample_bilinear(images, grid):

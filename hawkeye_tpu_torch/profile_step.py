@@ -3,7 +3,7 @@
     python -m hawkeye_tpu_torch.profile_step
         [--model bcnn|resnet50|cbcnn|mpn|peer_learning|pair_confusion|
                  osme|apinet|cin|crossx|interp_parts|prototree|dcl|
-                 ntsnet|apcnn]
+                 ntsnet|apcnn|s3n|mge]
         [--batch 8,128] [--steps 5]
 
 ``--model bcnn`` (the default) builds the port's Trainer from
@@ -34,8 +34,11 @@ the leaf update after each step) and ``dcl`` from ``configs/DCL.yaml``
 ``[unswapped; swapped]`` with their swap labels and laws, and its rates
 count the 2B rows the model sees (``bench_methods.py`` counts them so too),
 ``ntsnet`` from ``configs/NTSNet.yaml`` (ResNet-50, 224x224, M = 6; its
-rates count the B images, not the B + B*M backbone rows) and ``apcnn``
-from ``configs/APCNN.yaml`` (ResNet-50, 448x448).
+rates count the B images, not the B + B*M backbone rows), ``apcnn``
+from ``configs/APCNN.yaml`` (ResNet-50, 448x448), ``s3n`` from
+``configs/S3N.yaml`` (ResNet-50, 448x448, at epoch 20: the phase-1 step of
+80 of its 100 epochs) and ``mge`` from ``configs/MGE_CNN.yaml`` (four
+ResNet-50s, 224x224).
 The P x K recipes (OSME, API-Net, CIN) take ``--batch`` as P x K with the
 recipe's K (``dataset.n_samples``), and their labels come as P random
 classes K times each. Random weights, synthetic data, on the CUDA device.
@@ -52,7 +55,12 @@ optimizer's step is ``optimizer``; for ``ntsnet`` what its ``_nms`` and
 ``_crop`` launch (the greedy loop; the padding and the part crops) is
 ``nms`` and ``roi_crop``, and for ``apcnn`` what ``_rois`` and
 ``_roi_crop`` launch (the attention masking and the NMS; the dropblock and
-the union crop, forward only) is ``nms`` and ``roi_crop``; for ``cbcnn``
+the union crop, forward only) is ``nms`` and ``roi_crop``; for ``s3n`` what
+``_saliency_grids`` launches (the class response map, its peaks, the
+saliency maps, the blur and the grids, forward only) is ``saliency`` and
+what ``_warp`` launches (the grid sample) ``warp``, and for ``mge`` what
+``_cam_crop`` launches (the CAM, the box and the crop) is ``cam_crop``; for
+``cbcnn``
 every kernel under an ``aten::bmm`` or ``aten::mm`` (the Gram, the sketch products, the
 per-frequency reduction and the irDFT matmuls, forward and backward; not
 ``fc``'s backward) is ``compact_bilinear``, and for ``mpn`` every kernel
@@ -87,7 +95,9 @@ _PORTED = {"pool_fwd_kernel": "pool_fwd", "pool_bwd_kernel": "pool_bwd",
 _AUGMENT = "hk::augment"  # the profiler range around the device augmentation
 # model -> {its method: category}: profiler ranges around a model's own steps
 _RANGES = {"ntsnet": {"_nms": "nms", "_crop": "roi_crop"},
-           "apcnn": {"_rois": "nms", "_roi_crop": "roi_crop"}}
+           "apcnn": {"_rois": "nms", "_roi_crop": "roi_crop"},
+           "s3n": {"_saliency_grids": "saliency", "_warp": "warp"},
+           "mge": {"_cam_crop": "cam_crop"}}
 # model -> (category, host ops whose kernels it takes): the high-order heads
 _HEADS = {"cbcnn": ("compact_bilinear", ("aten::bmm", "aten::mm")),
           "mpn": ("covariance_newton_schulz", ("aten::bmm",))}
@@ -107,7 +117,9 @@ _RECIPES = {"cbcnn": ("CBCNN_S2.yaml", "CBCNN", "CBCNNTrainer", 448),
             "prototree": ("ProtoTreeNet.yaml", "ProtoTreeNet", "ProtoTreeTrainer", 224),
             "dcl": ("DCL.yaml", "DCL", "DCLTrainer", 448),
             "ntsnet": ("NTSNet.yaml", "NTSNet", "NTSNetTrainer", 224),
-            "apcnn": ("APCNN.yaml", "APCNN", "APCNNTrainer", 448)}
+            "apcnn": ("APCNN.yaml", "APCNN", "APCNNTrainer", 448),
+            "s3n": ("S3N.yaml", "S3N", "S3NTrainer", 448),
+            "mge": ("MGE_CNN.yaml", "MGE_CNN", "MGETrainer", 224)}
 
 
 def recipe_n_samples(model):
@@ -195,6 +207,8 @@ def bench_trainer(model, run_dir, batch, device=None):
         trainer.device_augment = make_train_augment(448, out_dtype=torch.bfloat16)
     if model == "apinet":
         trainer.epoch = 1  # past the epoch-0 gate, as 99 of its 100 epochs
+    if model == "s3n":
+        trainer.epoch = 20  # phase 1, as 80 of its 100 epochs
     return trainer
 
 

@@ -29,6 +29,7 @@ gradients rtol 1e-4 / atol 1e-6. The anchors and their adjacency: the
 port's equal to the JAX package's at 448x448.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 import types
 
 import jax

@@ -1,7 +1,9 @@
 """The port's API-Net model and loss (hawkeye_tpu_torch/models/methods/
 apinet.py, losses/apinet.py) against the JAX package's on the CPU.
 
-The model: resnet18 trunks in float64 at 64x64 (see test_torch_osme.py),
+The model: a one-block-per-stage trunk (``TINY``; the test's name is from
+its resnet18 days),
+in float64 at 64x64 (see test_torch_osme.py),
 batch 6 as three classes x two samples with one padded row (weight 0), an
 eval forward, then one train-mode step through the API-Net loss from the
 same perturbed weights; the pair mining, the gates and the four logit
@@ -17,6 +19,7 @@ repeated labels, a class of one (its intra search falls back to 0) and
 padded rows. The loss alone: values rtol 1e-5, gradients rtol 1e-4 / atol
 1e-6, with and without ``pair_weight``."""
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,15 +34,19 @@ from hawkeye_tpu_torch.losses.apinet import APINetLoss
 from hawkeye_tpu_torch.models.methods import apinet
 from hawkeye_tpu_torch.models.methods.apinet import APINet, mine_pairs
 from test_torch_osme import compare_eval, compare_train_step, shared_variables
+from test_torch_resnet import TINY
+from test_torch_resnet import tiny_trunk  # noqa: F401  (a fixture: pytestmark)
+
+pytestmark = pytest.mark.usefixtures("tiny_trunk")
 
 
 def test_apinet_resnet18_train_step_and_eval_match_jax():
     x = np.random.RandomState(4).randn(6, 64, 64, 3)
     labels = np.array([2, 2, 0, 0, 4, 4])
     weight = np.array([1, 1, 1, 1, 1, 0], np.float32)
-    jm = JaxAPINet(num_classes=5, backbone_name="resnet18", feature_dim=512,
+    jm = JaxAPINet(num_classes=5, backbone_name=TINY, feature_dim=512,
                    dropout_rate=0.0, dtype=jnp.float64)
-    pm = APINet(num_classes=5, backbone_name="resnet18", dropout_rate=0.0,
+    pm = APINet(num_classes=5, backbone_name=TINY, dropout_rate=0.0,
                 dtype=torch.float64)
     variables = shared_variables(jm, pm, x.shape, 5,
                                  labels=jnp.zeros((6,), jnp.int32))

@@ -6,6 +6,7 @@ rtol 1e-3, with an atol of 1e-3 of each tensor's largest gradient for the
 entries near zero (conv summation order differs between XLA and PyTorch on
 the CPU)."""
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -4,6 +4,7 @@ interpret mode at C=256 and at the C=512 tiled path, the fused descriptor and
 its custom backward. Tolerances are float32 summation order only: forward
 rtol 1e-5 / atol 1e-6, backward rtol 1e-4."""
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

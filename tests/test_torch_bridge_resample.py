@@ -8,6 +8,7 @@ layout. ``resize_nearest`` is checked exactly (it is a gather) at integer
 ratios both ways, at non-integer ones, and at sizes where JAX's float32
 index arithmetic and float64 disagree (2 -> 82, 3 -> 123)."""
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 import jax.numpy as jnp
 import numpy as np
 import pytest

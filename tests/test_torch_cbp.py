@@ -6,6 +6,7 @@ gradient within 1e-4 of the largest, for the Gram and the per-position
 forms, the irDFT and irfft inverses, with and without signed sqrt and L2.
 The ops run in float32 and TF32 plays no part on the CPU."""
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

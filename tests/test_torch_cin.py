@@ -1,7 +1,9 @@
 """The port's CIN model and loss (hawkeye_tpu_torch/models/methods/cin.py,
 losses/cin.py) against the JAX package's on the CPU.
 
-The model: resnet18 trunks in float64 at 64x64 (a 2x2 ``c5`` map: the
+The model: a one-block-per-stage trunk (``TINY``; the test's name is from
+its resnet18 days),
+in float64 at 64x64 (a 2x2 ``c5`` map: the
 NHWC flatten order of ``gate_fc`` and ``pair_head`` shows; see
 test_torch_osme.py), ``r_channel`` 16, batch 4 (rows 0/2 of one class,
 1/3 of two), an eval forward (no ``pair_embed``), then one train-mode
@@ -15,6 +17,7 @@ pair labels, squared hinge, ``sqrt(d^2 + 1e-12)``, pair weight
 an identical pair (finite gradient), and an odd batch; values rtol 1e-5,
 gradients rtol 1e-4 / atol 1e-6."""
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,14 +30,18 @@ from hawkeye_tpu.models.methods.cin import CIN as JaxCIN
 from hawkeye_tpu_torch.losses.cin import CINLoss
 from hawkeye_tpu_torch.models.methods.cin import CIN
 from test_torch_osme import compare_eval, compare_train_step, shared_variables
+from test_torch_resnet import TINY
+from test_torch_resnet import tiny_trunk  # noqa: F401  (a fixture: pytestmark)
+
+pytestmark = pytest.mark.usefixtures("tiny_trunk")
 
 
 def test_cin_resnet18_train_step_and_eval_match_jax():
     x = np.random.RandomState(8).randn(4, 64, 64, 3)
     batch = {"label": np.array([1, 0, 1, 3])}
-    jm = JaxCIN(num_classes=5, backbone_name="resnet18", r_channel=16,
+    jm = JaxCIN(num_classes=5, backbone_name=TINY, r_channel=16,
                 dtype=jnp.float64)
-    pm = CIN(num_classes=5, backbone_name="resnet18", r_channel=16,
+    pm = CIN(num_classes=5, backbone_name=TINY, r_channel=16,
              image_size=64, dtype=torch.float64)
     assert pm.gate_fc.in_features == 2 * 2 * 2 * 512
     assert pm.pair_head.in_features == 2 * 2 * 512

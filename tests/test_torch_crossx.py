@@ -11,6 +11,7 @@ model, which is the plain ResNet-50 with ``fc_ulti``. The loss alone: values rto
 gradients rtol 1e-4 / atol 1e-6, with a probability of exactly 0 in the
 KL's target (its ``p > 0`` guard)."""
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

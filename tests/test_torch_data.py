@@ -3,6 +3,7 @@ against the JAX package's: the same seeds give the same items, batches and
 orders, and the port's Trainer trains from real JPEG files on disk (the
 committed fixture tree) on the CPU."""
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 import os
 import random
 

@@ -16,6 +16,7 @@ with a float64 trunk (the heads are float32 in both packages) with the
 tolerances of test_torch_osme.compare_train_step; the loss alone with and
 without weights, both swap-label modes."""
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 import random
 
 import jax
@@ -34,6 +35,10 @@ from hawkeye_tpu_torch.losses.dcl import DCLLoss
 from hawkeye_tpu_torch.models import load_jax_variables
 from hawkeye_tpu_torch.models.methods.dcl import DCL
 from test_torch_osme import compare_train_step, shared_variables, to_f64
+from test_torch_resnet import TINY
+from test_torch_resnet import tiny_trunk  # noqa: F401  (a fixture: pytestmark)
+
+pytestmark = pytest.mark.usefixtures("tiny_trunk")
 
 CRIT = {"alpha": 1.0, "beta": 0.5, "gamma": 2.0}
 
@@ -188,8 +193,8 @@ def _dcl_batch(seed, b, cells, cls_2=True, weights=False):
 
 def test_model_eval_forward_and_loss_match_jax():
     x = np.random.RandomState(15).rand(2, 112, 112, 3).astype(np.float32)
-    jm = JaxDCL(num_classes=4, cls_2=False, backbone_name="resnet18", dtype=jnp.float32)
-    pm = DCL(4, cls_2=False, backbone_name="resnet18", dtype=torch.float32)
+    jm = JaxDCL(num_classes=4, cls_2=False, backbone_name=TINY, dtype=jnp.float32)
+    pm = DCL(4, cls_2=False, backbone_name=TINY, dtype=torch.float32)
     variables = shared_variables(jm, pm, x.shape, 16)
     batch = _dcl_batch(17, 2, 4, cls_2=False)
     out_j = jax.device_get(jax.jit(lambda v, a: jm.apply(v, a, train=False))(variables, x))
@@ -208,8 +213,8 @@ def test_model_eval_forward_and_loss_match_jax():
 
 def test_model_train_step_matches_jax_f64_trunk():
     x = np.random.RandomState(18).randn(4, 112, 112, 3)
-    jm = JaxDCL(num_classes=4, backbone_name="resnet18", dtype=jnp.float64)
-    pm = DCL(4, backbone_name="resnet18", dtype=torch.float64)
+    jm = JaxDCL(num_classes=4, backbone_name=TINY, dtype=jnp.float64)
+    pm = DCL(4, backbone_name=TINY, dtype=torch.float64)
     variables = shared_variables(jm, pm, x.shape, 19)
     to_f64(pm.backbone)  # the heads stay float32, as in JAX
     compare_train_step(jm, pm, variables, x, JaxDCLLoss(CRIT), DCLLoss(CRIT),

@@ -11,6 +11,7 @@ and the frameworks may round a tie differently); TA-wide ops atol 1e-5 in
 float32 (the colour and sharpness sums and the rotation's sine are
 evaluated by other libraries)."""
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 import functools
 import math
 import os

@@ -12,6 +12,7 @@ update rtol 1e-3 with an atol of 1e-3 of the tensor's largest update plus
 four float32 ulps of the parameter. Here: CBCNN stage 2 (vgg11, 64x64,
 d = 64, float32, the recipe's SGD)."""
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 import os
 import sys
 

@@ -8,10 +8,16 @@ CIN: resnet18 at 64x64, the recipe's SGD, P x K = 2 x 4. Interp-Parts: the
 recipe's SGD with its parameter groups (the backbone at 1x the LR, the
 rest at 20x, which the updates show), the JAX class built with
 ``stage_sizes=(1, 1, 1)``, K = 3, at 96x96, with the soft assignments of
-``test_torch_interp_parts.soften`` (that file says why). The per-batch cosine of
-both trainers gives the same LR at every step of a run, and a resumed run
+``test_torch_interp_parts.soften`` (that file says why), and in float64
+throughout: the JAX module reads its float32 head as float64
+(``_Float64Numpy``), and the port's model is cast after its init. With the
+float32 head the trunk's first BatchNorm scale updates differed by up to 3%
+of the tensor's largest update with one PyTorch thread against the
+default. The per-batch cosine of both trainers gives the same LR at every
+step of a run, and a resumed run
 continues it from ``start_epoch * len(train loader)``."""
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 import math
 import os
 import sys
@@ -24,6 +30,7 @@ import torch
 import hawkeye_tpu.models  # noqa: F401
 import hawkeye_tpu_torch.models  # noqa: F401
 from hawkeye_tpu.models.methods.cin import CIN as JaxCIN
+from hawkeye_tpu.models.methods import interp_parts as jax_ip
 from hawkeye_tpu.models.methods.interp_parts import InterpParts as JaxInterpParts
 from hawkeye_tpu_torch.config import setup_config
 from hawkeye_tpu_torch.examples.CIN import CINTrainer
@@ -35,6 +42,7 @@ from hawkeye_tpu_torch.models.methods.interp_parts import InterpParts
 from test_torch_examples import _batch, one_step
 from test_torch_examples_osme_apinet import NoTensorBoard, example_pair
 from test_torch_interp_parts import soften
+from test_torch_s3n_mge import _Float64Numpy
 from test_torch_trainer import _tiny_recipe_path
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -86,9 +94,14 @@ class PortF64IPTrainer(InterpPartsTrainer):
         return model
 
 
-def test_interp_parts_step_and_groups_match_jax_example(tmp_path):
+def test_interp_parts_step_and_groups_match_jax_example(tmp_path, monkeypatch):
+    monkeypatch.setattr(jax_ip, "jnp", _Float64Numpy())
     jt, pt = example_pair(tmp_path, JaxF64IPTrainer, PortF64IPTrainer,
                           "InterpPartsNet.yaml", IP_SIZE, 33, edit=lambda v: soften(v, 32))
+    pt.model.double()  # the head too (its parameters stay the optimizer's)
+    with jax.enable_x64(True):  # the JAX trainer's variables in float64 too
+        jt.variables = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), jt.variables)
+        jt.state = jt.create_state()
     assert isinstance(pt.criterion, InterpPartsLoss) and pt.criterion.coeff == 0.5
     groups = {g["label"]: g for g in pt.optimizer.param_groups}
     assert {k: g["lr_mult"] for k, g in groups.items()} == {"finetune": 1.0,

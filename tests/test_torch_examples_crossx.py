@@ -7,6 +7,7 @@ runs 64x64), batch 8, trunk, excitations and fusion in float64
 (the three heads are float32 in both packages), the recipe's SGD with
 momentum, its CrossX loss, and its MultiStepLR's rate at every epoch."""
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 import os
 import sys
 

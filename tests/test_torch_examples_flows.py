@@ -4,6 +4,7 @@ S1 -> S2 -> the Tester, with no sketch or irDFT tensor in any ``.pt`` it
 writes, and Peer-Learning S1 -> S2 with the acc1/acc2 meters filled and
 the peer log line."""
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 import os
 
 import numpy as np

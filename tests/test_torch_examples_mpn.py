@@ -7,11 +7,13 @@ test_torch_examples.py. SGD also shows the parameter groups in the
 updates: the backbone moves at 0.2x the LR of the reduction, its BatchNorm
 and the classifier."""
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 import os
 import sys
 
 import jax
 import jax.numpy as jnp
+import pytest
 import torch
 
 import hawkeye_tpu.models  # noqa: F401
@@ -21,20 +23,24 @@ from hawkeye_tpu_torch.examples.MPN import MPNTrainer
 from hawkeye_tpu_torch.models.methods.mpn import MPN
 from test_torch_examples import _batch, one_step
 from test_torch_examples_resnet import _pair
+from test_torch_resnet import TINY
+from test_torch_resnet import tiny_trunk  # noqa: F401  (a fixture: pytestmark)
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from Examples.MPN import MPNTrainer as JaxMPNTrainer  # noqa: E402
 
+pytestmark = pytest.mark.usefixtures("tiny_trunk")
+
 
 class JaxF64MPNTrainer(JaxMPNTrainer):
     def get_model(self, model_config):
-        return JaxMPN(num_classes=4, backbone_name="resnet18",
+        return JaxMPN(num_classes=4, backbone_name=TINY,
                       dimension_reduction=16, dtype=jnp.float64)
 
 
 class PortF64MPNTrainer(MPNTrainer):
     def get_model(self, model_config):
-        model = MPN(num_classes=4, backbone_name="resnet18",
+        model = MPN(num_classes=4, backbone_name=TINY,
                     dimension_reduction=16, dtype=torch.float64)
         model.backbone.to(torch.float64)  # the float32 head reads float32
         model.dr_bn.to(torch.float64)

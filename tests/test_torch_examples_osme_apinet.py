@@ -2,7 +2,8 @@
 package's Examples/OSMENet.py and Examples/APINet.py on the CPU: one step
 of each trainer pair on the same synthetic host batch from the same
 weights, through each trainer's own train step, tolerances of
-test_torch_examples.py. resnet18 trunks in float64 at 64x64 (see
+test_torch_examples.py. One-block-per-stage trunks (``TINY``) in float64 at
+64x64 (see
 test_torch_examples_resnet.py), batch 8 (the JAX trainer pads a batch to
 its 8 CPU devices, and padded rows would enter the batch statistics).
 
@@ -19,12 +20,14 @@ moves the backbone by its coupled decay alone, as optax's
 ``add_decayed_weights`` + Adam does: the port's backbone update equals
 optax's on the same parameters with zero gradients, rtol 1e-5."""
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 import os
 import sys
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import hawkeye_tpu.models  # noqa: F401
@@ -43,12 +46,15 @@ from hawkeye_tpu_torch.models.methods.osme import OSMENet
 from hawkeye_tpu.engine.optim import build_optimizer as jax_build_optimizer
 from test_torch_examples import _batch, one_step
 from test_torch_osme import perturbed
-from test_torch_resnet import _assert_close_scaled, _leaves
+from test_torch_resnet import TINY, _assert_close_scaled, _leaves
+from test_torch_resnet import tiny_trunk  # noqa: F401  (a fixture: pytestmark)
 from test_torch_trainer import _tiny_recipe_path, from_port
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from Examples.APINet import APINetTrainer as JaxAPINetTrainer  # noqa: E402
 from Examples.OSMENet import OSMETrainer as JaxOSMETrainer  # noqa: E402
+
+pytestmark = pytest.mark.usefixtures("tiny_trunk")
 
 SIZE = {"dataset": {"length": 16, "batch_size": 8,
                     "transformer": {"image_size": 64, "resize_size": 72}}}
@@ -81,12 +87,12 @@ def example_pair(tmp_path, jax_cls, port_cls, recipe, overrides, seed, edit=None
 
 class JaxF64OSMETrainer(JaxOSMETrainer):
     def get_model(self, model_config):
-        return JaxOSMENet(num_classes=4, backbone_name="resnet18", dtype=jnp.float64)
+        return JaxOSMENet(num_classes=4, backbone_name=TINY, dtype=jnp.float64)
 
 
 class PortF64OSMETrainer(OSMETrainer):
     def get_model(self, model_config):
-        model = OSMENet(num_classes=4, backbone_name="resnet18", image_size=64,
+        model = OSMENet(num_classes=4, backbone_name=TINY, image_size=64,
                         dtype=torch.float64)
         for m in (model.backbone, model.osme_0, model.osme_1):
             m.to(torch.float64)  # part_fc and fc stay float32, as in JAX
@@ -107,13 +113,13 @@ def test_osme_step_matches_jax_example(tmp_path):
 
 class JaxF64APINetTrainer(JaxAPINetTrainer):
     def get_model(self, model_config):
-        return JaxAPINet(num_classes=4, backbone_name="resnet18", feature_dim=512,
+        return JaxAPINet(num_classes=4, backbone_name=TINY, feature_dim=512,
                          dropout_rate=0.0, dtype=jnp.float64)
 
 
 class PortF64APINetTrainer(APINetTrainer):
     def get_model(self, model_config):
-        model = APINet(num_classes=4, backbone_name="resnet18", dropout_rate=0.0,
+        model = APINet(num_classes=4, backbone_name=TINY, dropout_rate=0.0,
                        dtype=torch.float64)
         model.backbone.to(torch.float64)
         return model

@@ -13,6 +13,7 @@ either package alone. SGD (lr 1.0) in place of the recipe's Adam, whose
 first step divides each gradient by its magnitude plus 1e-8, so that
 rounding decides the move of a parameter whose gradient is near 1e-8."""
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 import os
 import sys
 

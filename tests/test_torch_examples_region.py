@@ -8,7 +8,7 @@ float64 (the heads, and AP-CNN's attention, are float32 in both packages),
 batch 8 (the JAX trainer's 8 CPU devices), 32x32 (the smallest input both
 models' anchor grids take: a 1x1 c5).
 
-NTS-Net (resnet18, ``pad_side = part_size = 32``, M = 4, K = 3): SGD in
+NTS-Net (``TINY``, ``pad_side = part_size = 32``, M = 4, K = 3): SGD in
 place of the recipe's Adam (Adam's first step would amplify the float32
 heads' rounding) and dropout the identity on both sides (flax's at rate 0,
 the port's ``dropout_rate`` set to 0). AP-CNN (``stage_sizes=(1, 1, 1, 1)``,
@@ -24,6 +24,7 @@ trainer's, logits equal to the trained model's), with ``fused_part_pass``
 for NTS-Net.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 import os
 import sys
 
@@ -48,16 +49,20 @@ from hawkeye_tpu_torch.models.methods.ntsnet import NTSNet
 from test_torch_examples import _batch, one_step
 from test_torch_examples_osme_apinet import NoTensorBoard, example_pair
 from test_torch_ntsnet import _NoDropout
+from test_torch_resnet import TINY
+from test_torch_resnet import tiny_trunk  # noqa: F401  (a fixture: pytestmark)
 from test_torch_trainer import _tiny_recipe_path
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from Examples.APCNN import APCNNTrainer as JaxAPCNNTrainer  # noqa: E402
 from Examples.NTSNet import NTSNetTrainer as JaxNTSNetTrainer  # noqa: E402
 
+pytestmark = pytest.mark.usefixtures("tiny_trunk")
+
 SGD = {"name": "SGD", "lr": 0.05, "momentum": 0.9, "weight_decay": 1e-4}
 SIZE32 = {"dataset": {"transformer": {"image_size": 32, "resize_size": 36}}}
 NTS = dict(num_classes=4, proposal_num=4, cat_num=3, image_size=32, pad_side=32,
-           part_size=32, backbone_name="resnet18")
+           part_size=32, backbone_name=TINY)
 AP = dict(num_classes=4, image_size=32, stage_sizes=(1, 1, 1, 1), fpn_dim=32)
 DRAWS = {"pro": np.array([0.1, 0.45, 0.8, 0.2, 0.5, 0.7, 0.25, 0.9]),
          "i3": np.array([0, 3, 1, 4, 2, 0, 1, 3]), "i4": np.array([2, 0, 1, 1, 0, 2, 2, 1])}

@@ -13,11 +13,13 @@ the recipes' Adam (see test_torch_examples.py; their float32 heads leave
 ~1e-10 of rounding in a gradient, which Adam's first step turns into ~1%
 of the LR where a gradient is near its eps, 1e-8)."""
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 import os
 import sys
 
 import jax
 import jax.numpy as jnp
+import pytest
 import torch
 
 import hawkeye_tpu.models  # noqa: F401
@@ -29,10 +31,14 @@ from hawkeye_tpu_torch.examples.PairConfusion import PairConfusionTrainer
 from hawkeye_tpu_torch.losses.pair_confusion import PairwiseConfusionLoss
 from hawkeye_tpu_torch.models.methods.baseline import BaselineClassifier
 from test_torch_examples import _batch, one_step
+from test_torch_resnet import TINY
+from test_torch_resnet import tiny_trunk  # noqa: F401  (a fixture: pytestmark)
 from test_torch_trainer import _tiny_recipe_path, from_port
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from Examples.PairConfusion import PairConfusionTrainer as JaxPCTrainer  # noqa: E402
+
+pytestmark = pytest.mark.usefixtures("tiny_trunk")
 
 SIZE = {"dataset": {"length": 16, "batch_size": 8,
                     "transformer": {"image_size": 96, "resize_size": 110}}}
@@ -40,13 +46,13 @@ SIZE = {"dataset": {"length": 16, "batch_size": 8,
 
 class JaxF64PCTrainer(JaxPCTrainer):
     def get_model(self, model_config):
-        return JaxBaseline(backbone_name="resnet18", num_classes=4,
+        return JaxBaseline(backbone_name=TINY, num_classes=4,
                            dtype=jnp.float64)
 
 
 class PortF64PCTrainer(PairConfusionTrainer):
     def get_model(self, model_config):
-        model = BaselineClassifier("resnet18", 4, dtype=torch.float64)
+        model = BaselineClassifier(TINY, 4, dtype=torch.float64)
         model.backbone.to(torch.float64)
         return model
 

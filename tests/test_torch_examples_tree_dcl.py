@@ -3,7 +3,8 @@ package's Examples/ProtoTreeNet.py and Examples/DCL.py on the CPU, as
 test_torch_examples_osme_apinet.py sets out: the JAX trainer starts from
 the port's perturbed init through the bridge (``example_pair``, so no JAX
 init compiles), one step of each trainer through its own train step on the
-same host batch, the tolerances of test_torch_examples.py; resnet18 trunks
+same host batch, the tolerances of test_torch_examples.py; one-block-per-stage trunks
+(``TINY``)
 in float64 (the heads are float32 in both packages), batch 8 rows.
 
 ProtoTree (64x64, height 3, D = 16, random leaves): SGD in place of the
@@ -24,6 +25,7 @@ drives it at full size: ProtoTree two epochs with ``FREEZE_EPOCHS`` 1
 ``save_tree``/``load_tree`` and the Tester; DCL with either pipeline and the
 Tester. And both recipes build at full width with their registered names."""
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 import os
 import sys
 
@@ -48,14 +50,18 @@ from hawkeye_tpu_torch.models.methods.prototree import ProtoTreeNet, load_tree, 
 from test_torch_examples import _batch, one_step
 from test_torch_examples_osme_apinet import NoTensorBoard, example_pair
 from test_torch_package import ROOT, example_trainers
+from test_torch_resnet import TINY
+from test_torch_resnet import tiny_trunk  # noqa: F401  (a fixture: pytestmark)
 from test_torch_trainer import _tiny_recipe_path
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from Examples.DCL import DCLTrainer as JaxDCLTrainer  # noqa: E402
 from Examples.ProtoTreeNet import ProtoTreeTrainer as JaxProtoTreeTrainer  # noqa: E402
 
+pytestmark = pytest.mark.usefixtures("tiny_trunk")
+
 SGD = {"name": "SGD", "lr": 0.05, "momentum": 0.9, "weight_decay": 0.0}
-TREE = dict(num_classes=4, height=3, num_features=16, backbone_name="resnet18")
+TREE = dict(num_classes=4, height=3, num_features=16, backbone_name=TINY)
 
 
 class JaxF64ProtoTreeTrainer(JaxProtoTreeTrainer):
@@ -129,12 +135,12 @@ def test_prototree_adamw_steps_the_frozen_backbone_with_zero_gradients(tmp_path)
 
 class JaxF64DCLTrainer(JaxDCLTrainer):
     def get_model(self, model_config):
-        return JaxDCL(num_classes=4, backbone_name="resnet18", dtype=jnp.float64)
+        return JaxDCL(num_classes=4, backbone_name=TINY, dtype=jnp.float64)
 
 
 class PortF64DCLTrainer(DCLTrainer):
     def get_model(self, model_config):
-        model = DCL(4, backbone_name="resnet18", dtype=torch.float64)
+        model = DCL(4, backbone_name=TINY, dtype=torch.float64)
         model.backbone.to(torch.float64)
         return model
 

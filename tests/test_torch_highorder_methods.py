@@ -8,6 +8,7 @@ Its sketches, spectra and irDFT matrices are in no state dict. MPN's
 variables tree without the reduction; its train step is in
 test_torch_mpn.py and test_torch_mpn_resnet50.py."""
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -42,6 +42,7 @@ The loss alone: both padding branches of the blur (VALID at 6x6, SAME at
 4x4), no blur (radius 0), values rtol 1e-5 and gradients rtol 1e-4 / atol
 1e-6; the Beta prior is built once per batch size and device."""
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -5,6 +5,7 @@ input gradients within rtol 1e-4, with an atol of 1e-4 of each tensor's
 largest value (float32 matmul summation order). The coupled [2B, C, C]
 form equals the two-bmm form bit for bit."""
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

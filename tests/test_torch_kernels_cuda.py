@@ -8,6 +8,7 @@ Pool values, codes and gradients must be bit-exact; the Gram within
 rtol 1e-4 / atol 1e-5 of the plain float32 product (accumulation order and
 the bf16 kernel's approximate square root)."""
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 import pytest
 import torch
 

@@ -11,6 +11,7 @@ the gradient), on distinct rows; at a pair of equal rows the port's
 gradient is finite (the JAX one is NaN there). entropic_confusion within
 rtol 1e-6."""
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

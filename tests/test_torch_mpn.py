@@ -1,7 +1,8 @@
 """The port's MPN (hawkeye_tpu_torch/models/methods/mpn.py) against the
 JAX package's on the CPU: one train-mode step (batch statistics, ``dr_bn``
 folded into its running statistics) from the port's init carried to JAX
-by the bridge (``port_init``), resnet18 with
+by the bridge (``port_init``), a one-block-per-stage trunk (``TINY``; the test's name is from
+its resnet18 days) with
 ``dimension_reduction`` 16, also with ``is_sqrt``/``is_vec`` off and with
 the two-bmm iteration. The input is 96x96, a 3x3 ``c5`` map.
 
@@ -13,6 +14,7 @@ either package alone. Logits rtol 1e-4 / atol 1e-5 of their largest value;
 gradients rtol 1e-3 with an atol of 1e-3 of each tensor's largest;
 running statistics rtol 1e-5 with an atol of 1e-5 of the largest."""
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,7 +27,10 @@ from hawkeye_tpu.models.methods.mpn import MPN as JaxMPN
 from hawkeye_tpu_torch.models import export_jax_variables, load_jax_variables
 from hawkeye_tpu_torch.models.methods.mpn import MPN
 from test_torch_highorder_methods import ce
-from test_torch_resnet import _assert_close_scaled, _port_grads, _with_stats, port_init
+from test_torch_resnet import TINY, _assert_close_scaled, _port_grads, _with_stats, port_init
+from test_torch_resnet import tiny_trunk  # noqa: F401  (a fixture: pytestmark)
+
+pytestmark = pytest.mark.usefixtures("tiny_trunk")
 
 
 def mpn_step(name, **kw):
@@ -65,7 +70,7 @@ def mpn_step(name, **kw):
                                 {"coupled_newton_schulz": False, "iter_num": 3}],
                          ids=["default", "no_sqrt_no_vec", "two_bmm_3_iters"])
 def test_mpn_resnet18_train_step_matches_jax(kw):
-    pm = mpn_step("resnet18", dimension_reduction=16, **kw)
+    pm = mpn_step(TINY, dimension_reduction=16, **kw)
     dim = 16 * 17 // 2 if kw.get("is_vec", True) else 16 * 16
     assert pm.fc.in_features == dim
     assert pm.dr_conv.weight.shape == (16, 512, 1, 1)

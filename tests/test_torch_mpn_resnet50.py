@@ -2,6 +2,7 @@
 the JAX package's, one train-mode step from bridged weights, the trunk in
 float64 on both sides; the tolerances of test_torch_mpn.py."""
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 from test_torch_mpn import mpn_step
 
 

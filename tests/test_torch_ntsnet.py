@@ -1,6 +1,7 @@
 """The port's NTS-Net model and loss (hawkeye_tpu_torch/models/methods/
 ntsnet.py, losses/nts.py) against the JAX package's on the CPU, at
-tests/test_ntsnet_fused.py's shapes: resnet18 trunks at 64x64 with
+tests/test_ntsnet_fused.py's shapes (a one-block-per-stage trunk, ``TINY``, in
+place of its resnet18) at 64x64 with
 ``pad_side = part_size = 64``, M = 4 proposals, K = 3, batch 3.
 
 Both models take the port's init with every BatchNorm scale and every bias
@@ -28,6 +29,7 @@ gradients rtol 1e-4 / atol 1e-6. The anchors and their adjacency: the
 port's numpy copies equal to the JAX package's.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 import flax.linen
 import jax
 import jax.numpy as jnp
@@ -45,10 +47,13 @@ from hawkeye_tpu_torch.models.methods.ntsnet import NTSNet
 from hawkeye_tpu_torch.models import export_jax_variables, init_parameters, load_jax_variables
 from test_torch_osme import perturbed
 from test_torch_region_ops import stats64
-from test_torch_resnet import _assert_close_scaled, _leaves, _port_grads
+from test_torch_resnet import TINY, _assert_close_scaled, _leaves, _port_grads
+from test_torch_resnet import tiny_trunk  # noqa: F401  (a fixture: pytestmark)
+
+pytestmark = pytest.mark.usefixtures("tiny_trunk")
 
 KW = dict(num_classes=5, proposal_num=4, cat_num=3, image_size=64, pad_side=64,
-          part_size=64, backbone_name="resnet18")
+          part_size=64, backbone_name=TINY)
 KEYS = ("logits", "raw_logits", "part_logits", "top_prob")
 TOL = 1e-5  # float32 heads: the outputs and gradients agree to a few 1e-7
 

@@ -3,6 +3,7 @@ optim.py, losses) against the JAX package's optax chains and host
 schedulers: the same gradients over several steps give the same parameters
 (float32, rtol 1e-5 for SGD, 1e-4 for Adam's square roots)."""
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -127,8 +128,8 @@ def test_build_criterion_defaults_to_smoothed_ce():
     assert crit.label_smoothing == 0.1
     assert build_criterion(ConfigNode({"name": "CrossEntropyLoss",
                                        "label_smoothing": 0.0})).label_smoothing == 0.0
-    with pytest.raises(KeyError):  # a loss not ported yet
-        build_criterion(ConfigNode({"name": "MGELoss"}))
+    with pytest.raises(KeyError):  # a name that no package registers
+        build_criterion(ConfigNode({"name": "NoSuchLoss"}))
 
 
 def test_prefix_param_groups_label_like_make_prefix_labeler():

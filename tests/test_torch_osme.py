@@ -1,7 +1,9 @@
 """The port's OSME model and MAMC loss (hawkeye_tpu_torch/models/methods/
 osme.py, losses/mamc.py) against the JAX package's on the CPU.
 
-The model: resnet18 trunks at 64x64 (a 2x2 ``c5`` map, so the NHWC flatten
+The model: a one-block-per-stage trunk (``TINY``; the test's name is from
+its resnet18 days),
+at 64x64 (a 2x2 ``c5`` map, so the NHWC flatten
 order that feeds ``part_fc_{p}`` shows), batch 4 as two classes x two
 samples, an eval forward on the bridged running statistics, then one
 train-mode step (batch statistics folded into the running ones) through
@@ -22,6 +24,7 @@ rtol 1e-5 and gradients rtol 1e-4 / atol 1e-6.
 ``perturbed``, ``assert_roundtrip`` and ``compare_train_step`` serve the
 other method tests of this slice."""
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -39,7 +42,10 @@ from hawkeye_tpu_torch.models import (
     load_jax_variables,
 )
 from hawkeye_tpu_torch.models.methods.osme import OSMENet
-from test_torch_resnet import _assert_close_scaled, _leaves, _port_grads, _with_stats
+from test_torch_resnet import TINY, _assert_close_scaled, _leaves, _port_grads, _with_stats
+from test_torch_resnet import tiny_trunk  # noqa: F401  (a fixture: pytestmark)
+
+pytestmark = pytest.mark.usefixtures("tiny_trunk")
 
 
 def perturbed(variables, seed):
@@ -167,9 +173,9 @@ def to_f64(*modules):
 def test_osme_resnet18_train_step_and_eval_match_jax():
     x = np.random.RandomState(0).randn(4, 64, 64, 3)
     batch = {"label": np.array([1, 1, 3, 3])}
-    jm = JaxOSMENet(num_classes=5, num_attention=2, backbone_name="resnet18",
+    jm = JaxOSMENet(num_classes=5, num_attention=2, backbone_name=TINY,
                     dtype=jnp.float64)
-    pm = OSMENet(num_classes=5, num_attention=2, backbone_name="resnet18",
+    pm = OSMENet(num_classes=5, num_attention=2, backbone_name=TINY,
                  image_size=64, dtype=torch.float64)
     variables = shared_variables(jm, pm, x.shape, 2)
     assert pm.part_fc_0.in_features == 2 * 2 * 512

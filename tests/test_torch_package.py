@@ -3,6 +3,7 @@ nothing of JAX or of the JAX package, its entry points default to CUDA and
 refuse to carry on without it, and its own copies of the config and registry
 behave like the JAX package's."""
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 import ast
 import os
 
@@ -111,7 +112,8 @@ def test_tester_and_test_entry_default_to_cuda_and_raise_without_it(
                                   "PeerLearning_BCNN_S1.yaml",
                                   "PeerLearning_BCNN_S2.yaml", "PC_resnet50.yaml",
                                   "OSMENet.yaml", "APINet.yaml", "CIN.yaml",
-                                  "CrossX.yaml", "InterpPartsNet.yaml"])
+                                  "CrossX.yaml", "InterpPartsNet.yaml", "S3N.yaml",
+                                  "MGE_CNN.yaml"])
 def test_config_copy_reads_recipes_like_jax(name):
     path = os.path.join(ROOT, "configs", name)
     port = setup_config(argv=["--config", path])
@@ -183,6 +185,13 @@ RECIPES = {
                    | {f"a{lvl}_{k}" for lvl in (3, 4, 5) for k in ("spatial", "ch1", "ch2")}
                    | {f"layer{i}_{j}" for i, n in enumerate((3, 4, 6, 3), 1)
                       for j in range(n)}),
+    "S3N.yaml": ("S3N", "MultiSmoothLoss", "S3N",
+                 {"backbone", "raw_classifier", "sampler_buffer", "sampler_classifier",
+                  "sampler_buffer1", "sampler_classifier1", "con_classifier", "radius",
+                  "radius_inv", "blur_kernel"}),
+    "MGE_CNN.yaml": ("MGECNN", "MGELoss", "MGE_CNN",
+                     {"expert_0", "expert_1", "expert_2", "gate_backbone", "cls_gate_0",
+                      "cls_gate_1"}),
 }
 
 
@@ -222,6 +231,14 @@ def test_recipe_builds_on_cpu_with_its_registered_names(name):
     if cfg.model.name == "APCNN":  # 56x56, 28x28 and 14x14 grids at 448x448
         assert [getattr(model, f"anchors{i}").shape[0] for i in range(3)] == [3136, 784, 196]
         assert model.cls3.fc1.out_features == 512
+    if cfg.model.name == "S3N":  # ResNet-50, 448x448, the 61x61 blur
+        assert model.blur_kernel.shape == (61, 61, 1, 1) and model.image_size == 448
+        assert model.fused_warp_pass and model.sampler_buffer.conv.weight.shape[0] == 2048
+        assert type(model.backbone.bn1).__name__ == "GroupedBatchNorm"
+    if cfg.model.name == "MGE_CNN":  # four ResNet-50s at 224x224, 10C part maps
+        assert model.image_size == 224 and model.box_thred == 0.2
+        assert model.expert_2.head.conv6.weight.shape == (2000, 1024, 1, 1)
+        assert model.expert_0.head.cls_cat.in_features == 2048 + 2000
     if cfg.model.name == "IP_ResNet101":
         assert [len(n) for n in model.backbone.stage_names] == [3, 4, 23]
         assert model.grouping.weight.shape == (int(cfg.model.num_parts), 1024)

@@ -4,6 +4,7 @@ and against the lax argmax formulation, forward and backward, f32 and bf16,
 with ties and all-negative windows. Every comparison is bit-exact: the op
 only selects and routes values, it never rounds."""
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -17,6 +17,7 @@ random leaf distributions, bridged.
   loss, the bridge's ``tree_leaves`` collection and ``save_tree``/
   ``load_tree``."""
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 import copy
 import json
 import os
@@ -37,7 +38,10 @@ from hawkeye_tpu_torch.losses.prototree import ProtoTreeLoss, leaf_update
 from hawkeye_tpu_torch.models import export_jax_variables, load_jax_variables
 from hawkeye_tpu_torch.models.methods import prototree as ppt
 from test_torch_osme import assert_roundtrip, shared_variables
-from test_torch_resnet import _assert_close_scaled, _port_grads
+from test_torch_resnet import TINY, _assert_close_scaled, _port_grads
+from test_torch_resnet import tiny_trunk  # noqa: F401  (a fixture: pytestmark)
+
+pytestmark = pytest.mark.usefixtures("tiny_trunk")
 
 H, D, C = 3, 16, 4
 SAMPLINGS = ("distributed", "sample_max", "greedy")
@@ -45,8 +49,8 @@ SAMPLINGS = ("distributed", "sample_max", "greedy")
 
 def _models(dtype_j, dtype_p):
     jm = jpt.ProtoTreeNet(num_classes=C, height=H, num_features=D,
-                          backbone_name="resnet18", dtype=dtype_j)
-    pm = ppt.ProtoTreeNet(C, height=H, num_features=D, backbone_name="resnet18",
+                          backbone_name=TINY, dtype=dtype_j)
+    pm = ppt.ProtoTreeNet(C, height=H, num_features=D, backbone_name=TINY,
                           dtype=dtype_p)
     return jm, pm
 

@@ -28,6 +28,7 @@ forward with ``bn_groups=(B, B*M)`` against JAX's ``grouped_bn`` ResNet:
 stages within 1e-8, statistics within 1e-6.
 """
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

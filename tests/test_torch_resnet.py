@@ -12,6 +12,7 @@ The running statistics the eval tests read are mild (mean ~0.1, variance
 variance, whose division amplifies float32 rounding beyond any tolerance in
 both packages alike."""
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 import flax.linen as fnn
 import jax
 import jax.numpy as jnp
@@ -38,20 +39,65 @@ from hawkeye_tpu_torch.models.methods.baseline import BaselineClassifier
 
 NAMES = ["resnet18", "resnet50", "resnext50_32x4d"]
 
+# A BasicBlock ResNet with one block per stage (ResNet-18's widths and
+# strides, half its depth), for the comparisons whose path runs a trunk but
+# does not depend on its depth: the trunk itself is held against JAX at its
+# registered depths in this file and test_torch_resnet_train.py, and the
+# S3N and MGE-CNN models on resnet18 in test_torch_s3n_mge.py. A test that
+# builds it asks for the ``tiny_trunk`` fixture, which registers it in both
+# packages' BACKBONE for that test module alone.
+TINY = "resnet10"
+
+
+def _jax_tiny(num_classes=0, **kw):
+    from hawkeye_tpu.models.backbones import resnet as jax_resnet
+
+    return jax_resnet.ResNet(block_cls=jax_resnet.BasicBlock, stage_sizes=(1, 1, 1, 1),
+                             num_classes=num_classes, **kw)
+
+
+def _port_tiny(num_classes=0, **kw):
+    from hawkeye_tpu_torch.models.backbones import resnet
+
+    return resnet.ResNet(resnet.BasicBlock, (1, 1, 1, 1), num_classes=num_classes, **kw)
+
+
+@pytest.fixture(scope="module")
+def tiny_trunk():
+    """``TINY`` in both packages' BACKBONE while the module's tests run."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(JAX_BACKBONE, TINY, _jax_tiny)
+        mp.setitem(BACKBONE, TINY, _port_tiny)
+        yield TINY
+
 
 def _leaves(tree):
     return {jax.tree_util.keystr(k): np.asarray(v)
             for k, v in jax.tree_util.tree_leaves_with_path(tree)}
 
 
+def init_in_float32(pm, seed):
+    """``init_parameters`` of ``pm`` from ``seed``, its float64 tensors drawn
+    in float32 and cast back: the variables a comparison hands to JAX are
+    float32 whatever the model holds, and float64 draws take ~3x as long on
+    the CPU (a ResNet-50: 6.5 s against 2.1 s)."""
+    wide = [t for t in (*pm.parameters(), *pm.buffers()) if t.dtype == torch.float64]
+    for t in wide:
+        t.data = t.data.float()
+    init_parameters(pm, torch.Generator().manual_seed(seed))
+    for t in wide:
+        t.data = t.data.double()
+    return pm
+
+
 def port_init(pm, seed):
-    """The port model ``pm`` initialised by the port (``init_parameters``
+    """The port model ``pm`` initialised by the port (``init_in_float32``
     from ``seed``), in the flax layout: the variables a comparison hands to
     the JAX model, so that no JAX init runs (op by op, a process's first JAX
     init of a ResNet compiles each primitive: ~10-20 s on the CPU). The model
     takes them back, so a parameter it holds in float64 has the float32 value
     JAX reads."""
-    init_parameters(pm, torch.Generator().manual_seed(seed))
+    init_in_float32(pm, seed)
     variables = export_jax_variables(pm)
     load_jax_variables(pm, variables)
     return variables
@@ -185,8 +231,8 @@ def test_baseline_registrations_and_bridge_names(model_name):
 
 def test_bridge_round_trip_with_batch_stats():
     jm = JaxBaseline(backbone_name="resnet18", num_classes=3, dtype=jnp.float32)
-    variables = _with_stats(
-        jm.init(jax.random.PRNGKey(10), jnp.zeros((1, 32, 32, 3))), 11)
+    variables = _with_stats(  # the JAX init, compiled
+        jax.jit(jm.init)(jax.random.PRNGKey(10), jnp.zeros((1, 32, 32, 3))), 11)
     pm = BaselineClassifier("resnet18", 3, dtype=torch.float32)
     load_jax_variables(pm, variables)
     back = export_jax_variables(pm)

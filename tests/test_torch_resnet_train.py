@@ -13,6 +13,7 @@ lie within float32 rounding of zero, each of which, landing on the other
 side, changes one channel's gradient by O(1). Two correct float32
 implementations (or one against its own float64 run) disagree there."""
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 import jax
 import jax.numpy as jnp
 import numpy as np

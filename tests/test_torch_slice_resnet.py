@@ -8,9 +8,11 @@ update rtol 1e-3 with an atol of 1e-3 of the tensor's largest update plus
 four float32 ulps of the parameter; the running statistics rtol 1e-5 with
 an atol of 1e-5 of each tensor's largest value."""
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import hawkeye_tpu.models  # noqa: F401
@@ -22,14 +24,17 @@ from hawkeye_tpu_torch.config import setup_config
 from hawkeye_tpu_torch.engine import Trainer
 from hawkeye_tpu_torch.models import export_jax_variables
 from hawkeye_tpu_torch.models.methods.baseline import BaselineClassifier
-from test_torch_resnet import _assert_close_scaled
+from test_torch_resnet import TINY, _assert_close_scaled
+from test_torch_resnet import tiny_trunk  # noqa: F401  (a fixture: pytestmark)
 from test_torch_tester import SLICE, _recipe
 from test_torch_trainer import _assert_updates_close, from_port
+
+pytestmark = pytest.mark.usefixtures("tiny_trunk")
 
 
 class JaxF64Trainer(JaxTrainer):
     def get_model(self, model_config):
-        return JaxBaseline(backbone_name="resnet18", num_classes=5,
+        return JaxBaseline(backbone_name=TINY, num_classes=5,
                            dtype=jnp.float64)
 
     def device_prepare_train(self, rng, batch):
@@ -38,7 +43,7 @@ class JaxF64Trainer(JaxTrainer):
 
 class PortF64Trainer(Trainer):
     def get_model(self, model_config):
-        model = BaselineClassifier("resnet18", 5, dtype=torch.float64)
+        model = BaselineClassifier(TINY, 5, dtype=torch.float64)
         model.backbone.to(torch.float64)  # the float32 head reads a float32 pool
         return model
 

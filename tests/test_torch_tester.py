@@ -5,8 +5,11 @@ pipeline; and the port's Trainer with ``dataset.pipeline: device`` on its
 own draws, whose best model the Tester reads back. The step against the
 JAX Trainer is in test_torch_slice_resnet.py."""
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
+import functools
 import os
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -80,6 +83,25 @@ def test_device_pipeline_trains_and_the_tester_reads_its_best_model(tmp_path):
     assert acc == val_m["acc"]
 
 
+class _JitInit:
+    """A flax module whose ``init`` runs as one compiled program: op by op, a
+    cold process's first ResNet init takes ~10 s."""
+
+    def __init__(self, module):
+        self.module = module
+
+    def init(self, rngs, x, **kw):
+        return jax.jit(functools.partial(self.module.init, **kw))(rngs, x)
+
+    def __getattr__(self, name):
+        return getattr(self.module, name)
+
+
+class JitInitTester(JaxTester):
+    def get_model(self, model_config):
+        return _JitInit(super().get_model(model_config))
+
+
 @pytest.mark.parametrize("pipeline", ["host", "device"])
 def test_tester_matches_jax_tester(tmp_path, pipeline):
     pm = BaselineClassifier("resnet18", 5, dtype=torch.float32)
@@ -95,7 +117,7 @@ def test_tester_matches_jax_tester(tmp_path, pipeline):
                     "transformer": {"image_size": 32, "resize_size": 40}},
         "model": {"name": "ResNet18", "num_classes": 5, "dtype": "float32",
                   "load": weights}})
-    want = JaxTester(jax_setup_config(argv=["--config", path])).test()
+    want = JitInitTester(jax_setup_config(argv=["--config", path])).test()
     tester = Tester(setup_config(argv=["--config", path]), device="cpu")
     assert len(tester.dataset) == 20
     assert tester.test() == want

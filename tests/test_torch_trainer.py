@@ -8,6 +8,7 @@ rtol 1e-4 and every parameter's update (new - old) to rtol 1e-3, with an
 atol of 1e-3 of the tensor's largest update (float32 summation order) plus
 four float32 ulps of the parameter (the rounding of new and old)."""
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 import os
 
 import jax
@@ -97,8 +98,9 @@ def _assert_updates_close(port_before, port_after, jax_before, jax_after):
         want = flat["ja"][k] - flat["jb"][k]
         got = flat["pa"][k] - flat["pb"][k]
         scale = float(np.abs(want).max()) or 1.0
+        # (the port's export is float32, whatever the JAX parameters' dtype)
         tol = (1e-3 * np.abs(want) + 1e-3 * scale
-               + 4 * np.spacing(np.abs(flat["jb"][k])))
+               + 4 * np.spacing(np.abs(flat["jb"][k]).astype(np.float32)))
         bad = np.abs(got - want) > tol
         assert not bad.any(), (k, got[bad][:5], want[bad][:5])
 

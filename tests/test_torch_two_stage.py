@@ -3,6 +3,7 @@ on the CPU: stage 1 writes best_model, stage 2 loads it through the recipe's
 ``model.load`` key and trains, and a resumed stage 2 continues from the
 checkpoint with the same weights, optimizer state and scheduler."""
 
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 import os
 
 import pytest

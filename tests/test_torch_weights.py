@@ -4,6 +4,7 @@ the CPU: a seeded state dict in torchvision's layout, written to a .pth in
 the test's directory, loads into the port's backbone with exactly the
 tensors that the JAX loader merges into the same variables (compared
 through the bridge) and the same log lines; a missing file logs "training
+import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
 from scratch" and keeps the init, in both; a .msgpack name reads the port's
 .pt file of the same stem; and the port's Trainer reads
 ``model.backbone.pretrain`` (and ``model.pretrain``) as the JAX Trainer
