@@ -213,9 +213,45 @@ exits non-zero:
     idle share and kernel time by category of ``profile_step``'s profile
     of 5 steps (``saliency``, ``warp``, ``cam_crop``), no kernel launch.
 
+26. native_decoder: the native JPEG decoder built from the checkout (g++
+    and libjpeg on this machine); seeded CUB-sized JPEGs (500x375 and
+    375x500) decoded at 512 by ``FGDataset(decode_size=512)``, its bytes the
+    native decoder's and within the JAX test's mean tolerance of PIL's;
+    host decode images/s, native and PIL, at the Baseline recipe's loader
+    thread count and at one thread per core. Where the decoder cannot be
+    built, the dataset's bytes must be PIL's and the reason is printed.
+27. reference_vgg_bn: BCNN on VGG-16-BN (64x64, batch 4, float64,
+    BatchNorm at random) on the card against the CPU, logits, gradients and
+    running statistics within 1e-8 of the largest value; ``fast_dgrad``'s
+    ``dx`` and ``dw`` against autograd in float64; the VGG-16-BN
+    classifier's eval forward at 224x224 against the CPU in float64.
+28. slice_vgg_bn: BCNN S1 -> S2 on ``model.backbone: vgg16_bn`` at
+    448x448, batch 8, through the BCNN Example trainer, each stage's
+    launches equal to the plain BCNN's (phase 5); stage 2 with
+    ``experiment.profile: true`` (its trace file must exist) and the Tester
+    equal to the trained model; one stage-2 step with ``model.fast_dgrad:
+    true`` on plain VGG-16.
+29. throughput_vgg_bn: ``bcnn_bn_train_images_per_sec`` at 448x448, batch
+    128 and 8, with peak memory, the device idle share and time by
+    category (``profile_step --model bcnn_bn``).
+30. distributed: one Baseline-shaped step at a global batch of 16 on two
+    ranks (this script with ``--distributed-worker``, gloo over CUDA tensors
+    on the one card: NCCL refuses two ranks on one device) against one
+    process at 16 from the same weights: in float64 (ResNet-18, 64x64, a
+    float64 head, SGD) every update and running statistic within 1e-10;
+    the Baseline recipe's ResNet-50 at 448x448 (bf16, Adam), the agreement
+    printed.
+31. mge_fused: MGE-CNN's ``fused_experts`` against its sequential path on
+    the card in float64 within 1e-10 (logits, gradients, statistics; the
+    boxes identical), then ``mge_cnn_fused_train_images_per_sec`` beside
+    the sequential ``mge_cnn_train_images_per_sec`` at batch 4, 224x224.
+32. mixup: Mixup and CutMix on the card against the CPU at the same draws
+    (b32, 448x448): within 1e-6, the masks identical.
+
 Then a ``kernels`` JSON line (pool kernels at batch 8; the Gram at batch
 128, where its 134 MB output cannot stay in the 50 MB L2 between replays;
-``launches`` summed over the BCNN stage 2 and the new recipes' stages),
+``launches`` summed over the BCNN stage 2, the new recipes' stages and
+the VGG-16-BN stages),
 the ``nvidia-smi`` name and power-limit line,
 and as the last line ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or without the package beside it, it exits non-zero and prints no
@@ -645,7 +681,7 @@ def run_slice(torch, run_dir):
          stage2=dict(r2, launches=s2_launches, train_steps=steps,
                      seconds_with_val=s2_seconds),
          stage2_loaded_stage1_weights=True)
-    return s2, s2_launches
+    return s2, s2_launches, s1_launches
 
 
 def _train_rate(torch, trainer, model, batch, warmup=3, timed=10):
@@ -1051,14 +1087,16 @@ def _train_stage(torch, trainer_cls, config, run_dir, overrides, want=None,
 ZERO_LAUNCHES = {"pool_fwd": 0, "pool_bwd": 0, "gram_signed_sqrt": 0}
 
 
-def _tester_matches(torch, trainer, config, run_dir, over, want_top1=None):
+def _tester_matches(torch, trainer, config, run_dir, over, want_top1=None,
+                    want_launches=ZERO_LAUNCHES):
     """The Tester on the trainer's best model and val split: its top-1 must
     be the trainer's best val accuracy (or ``want_top1``, where the
     trainer's validation calls the model otherwise than the Tester), and its
     logits on the first val batch the trained model's in memory, so that the
     hold covers save and load. Only where an earlier epoch than the last was
     the best (the trainer saves the last of equal bests) does the trainer's
-    model first load the saved best. Launches must stay 0."""
+    model first load the saved best. Launches must be ``want_launches`` (0
+    unless the model runs the kernels)."""
     from hawkeye_tpu_torch.config import setup_config
     from hawkeye_tpu_torch.engine import Tester
     from hawkeye_tpu_torch.engine import checkpoint as ckpt
@@ -1085,7 +1123,7 @@ def _tester_matches(torch, trainer, config, run_dir, over, want_top1=None):
     with torch.no_grad():
         same = torch.equal(tester.model(val["img"])["logits"], logits)
     torch.cuda.synchronize()
-    if not same or top1 != val_acc or dict(LAUNCHES) != ZERO_LAUNCHES:
+    if not same or top1 != val_acc or dict(LAUNCHES) != want_launches:
         raise AssertionError(f"{config} Tester: logits equal {same}, top-1 {top1} "
                              f"vs the Trainer's {val_acc}, launches {dict(LAUNCHES)}")
     return top1
@@ -1999,14 +2037,15 @@ S3N_MGE_F64_TOL = 1e-8
 S3N_MGE_BATCHES = {"s3n": 8, "mge": 4}
 
 
-def _s3n_mge_case(torch, name, dtype, dev, p=0, fused=True):
+def _s3n_mge_case(torch, name, dtype, dev, p=0, fused=True, experts_fused=False):
     """One train-mode forward and backward of S3N at phase ``p`` (its draws
     ``u`` from a seeded CPU generator) or MGE-CNN with the labels, then
     MGE-CNN's eval forward (each expert's argmax picks the CAM's class):
     ResNet-18 trunks, 64x64 (S3N 128x128), 200 classes, batch 4, BatchNorm scales and
     biases at random, on ``dev``: (logits, {parameter: gradient}, {buffer:
     running statistic}, the picks: S3N's zoom and inverse peak masks, MGE's
-    boxes per crop). S3N runs at 128x128 (a 4x4 c5: several peaks)."""
+    boxes per crop). S3N runs at 128x128 (a 4x4 c5: several peaks);
+    ``experts_fused`` runs MGE-CNN's ``fused_experts`` path."""
     from hawkeye_tpu_torch.losses.mge import MGELoss
     from hawkeye_tpu_torch.losses.s3n import MultiSmoothLoss
     from hawkeye_tpu_torch.models import init_parameters
@@ -2018,7 +2057,8 @@ def _s3n_mge_case(torch, name, dtype, dev, p=0, fused=True):
         m = S3N(200, image_size=size, backbone_name="resnet18", dtype=dtype,
                 fused_warp_pass=fused)
     else:
-        m = mge.MGECNN(200, image_size=size, backbone_name="resnet18", dtype=dtype)
+        m = mge.MGECNN(200, image_size=size, backbone_name="resnet18", dtype=dtype,
+                       fused_experts=experts_fused)
     gen = torch.Generator().manual_seed(41)
     init_parameters(m, gen)
     _bn_at_random(torch, m, gen)
@@ -2232,6 +2272,531 @@ def run_s3n_mge(torch, run_dir):
                    ms_per_step_by_category=prof["ms_per_step_by_category"])
 
 
+# ----------------------------------------------------------------------------
+# phases 26-32: the eighth slice (native decode, VGG-BN, data parallelism,
+# MGE-CNN's fused experts, Mixup/CutMix)
+# ----------------------------------------------------------------------------
+DECODE_SIZE = 512  # the device pipeline's resize_size at 448
+N_JPEGS = 64
+DECODE_REPEATS = 3
+DECODE_MEAN_TOL = 12  # tests/test_native_decoder.py: mean |native - PIL|
+VGG_BN_F64_TOL = 1e-8
+DIST_F64_TOL = 1e-10
+MGE_FUSED_TOL = 1e-10
+MIXUP_TOL = 1e-6
+DIST_WORKER = "--distributed-worker"
+
+
+def check_native_decoder(torch, run_dir):
+    """native_decoder: build the decoder from the checkout (g++ and libjpeg
+    on this machine), decode seeded CUB-sized JPEGs (500x375 and 375x500,
+    quality 90) at 512 through ``FGDataset(decode_size=512)``: its bytes are
+    the native decoder's, within the JAX test's mean tolerance of PIL's
+    path; then host decode images/s, native and PIL, at the Baseline
+    recipe's loader thread count and at one thread per core. Where the
+    library cannot be built (no libjpeg), ``FGDataset`` must give PIL's
+    bytes, the reason is printed and only PIL's rate is measured."""
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    from hawkeye_tpu_torch.config import load_yaml_config
+    from hawkeye_tpu_torch.data import FGDataset, native_decoder
+    from hawkeye_tpu_torch.data.dataset import load_rgb
+    from hawkeye_tpu_torch.data.transforms_host import center_crop, resize_shorter
+
+    t0 = time.time()
+    available = native_decoder.native_available()
+    build_seconds = time.time() - t0
+    d = os.path.join(run_dir, "jpegs")
+    os.makedirs(d)
+    rs = np.random.RandomState(0)
+    paths = []
+    for i in range(N_JPEGS):
+        h, w = (375, 500) if i % 3 else (500, 375)
+        smooth = np.kron(rs.rand(h // 25, w // 25, 3), np.ones((25, 25, 1)))
+        arr = np.clip(smooth * 200 + rs.randn(h, w, 3) * 20, 0, 255).astype(np.uint8)
+        paths.append(os.path.join(d, f"{i}.jpg"))
+        Image.fromarray(arr).save(paths[-1], quality=90)
+    with open(os.path.join(d, "meta.txt"), "w") as f:
+        f.writelines(f"{i % 200} {i}.jpg\n" for i in range(N_JPEGS))
+
+    def native(path):
+        return native_decoder.decode_resize_center(path, DECODE_SIZE)
+
+    def pil(path):
+        return np.asarray(center_crop(resize_shorter(load_rgb(path), DECODE_SIZE),
+                                      DECODE_SIZE))
+
+    ds = FGDataset(d, os.path.join(d, "meta.txt"), decode_size=DECODE_SIZE)
+    diffs, differing = [], []
+    for i, path in enumerate(paths):
+        b = pil(path)
+        a = native(path) if available else b
+        if a is None or not np.array_equal(ds[i]["img"], a):
+            raise AssertionError(f"FGDataset's decode of {path} is not the "
+                                 f"{'native' if available else 'PIL'} decoder's")
+        diffs.append(float(np.abs(a.astype(int) - b.astype(int)).mean()))
+        differing.append(float((a != b).mean()))
+    if max(diffs) >= DECODE_MEAN_TOL:
+        raise AssertionError(f"native vs PIL mean |diff| {max(diffs)}")
+    loader_threads = int(load_yaml_config(os.path.join(
+        ROOT, "configs", "Baseline.yaml")).dataset.num_workers)
+    rates = {}
+    for threads in sorted({loader_threads, os.cpu_count() or 1}):
+        for name, fn in (("native", native), ("pil", pil)):
+            if name == "native" and not available:
+                continue
+            with ThreadPoolExecutor(threads) as pool:
+                list(pool.map(fn, paths[:threads]))  # warm the page cache
+                t0 = time.perf_counter()
+                list(pool.map(fn, paths * DECODE_REPEATS))
+                dt = time.perf_counter() - t0
+            rates[f"{name}_{threads}_threads"] = len(paths) * DECODE_REPEATS / dt
+    native_rate = rates.get(f"native_{loader_threads}_threads")
+    emit("native_decoder", decoder=native_decoder.describe(), native_built=available,
+         build_seconds=build_seconds, images=N_JPEGS,
+         sizes="500x375 and 375x500, quality 90", decode_size=DECODE_SIZE,
+         fgdataset_bytes_equal=("native" if available else "PIL (fallback)"),
+         mean_abs_diff_to_pil_max=max(diffs),
+         share_of_values_differing_from_pil=sum(differing) / len(differing),
+         tolerance_mean=DECODE_MEAN_TOL, loader_threads=loader_threads,
+         cpu_count=os.cpu_count(),
+         host_decode_images_per_sec_native=(native_rate if available else
+                                            "not measured: the decoder did not build"),
+         host_decode_images_per_sec_pil=rates[f"pil_{loader_threads}_threads"],
+         host_decode_images_per_sec=rates, reads="warm page cache")
+
+
+def _bcnn_bn_case(torch, dev):
+    """One train-mode forward and backward of a small BCNN on VGG-16-BN
+    (64x64, batch 4, 200 classes, the whole model in float64 with plain
+    pools: the pool kernels take float32 and bf16 only), BatchNorm scales and
+    biases at random, on ``dev``: (logits, {parameter: gradient}, {buffer:
+    running statistic})."""
+    import torch.nn.functional as F
+
+    from hawkeye_tpu_torch.models import init_parameters
+    from hawkeye_tpu_torch.models.methods.bcnn import BCNN
+
+    m = BCNN(200, backbone_name="vgg16_bn", efficient_pool=False, dtype=torch.float64)
+    gen = torch.Generator().manual_seed(51)
+    init_parameters(m, gen)
+    _bn_at_random(torch, m, gen)
+    m.double().to(dev).train()
+    x = torch.randn((4, 64, 64, 3), generator=torch.Generator().manual_seed(52),
+                    dtype=torch.float64).to(dev)
+    y = torch.tensor([3, 77, 150, 3], device=dev)
+    out = m(x)
+    F.cross_entropy(out["logits"], y).backward()
+    grads = {n: p.grad.detach().cpu() for n, p in m.named_parameters()}
+    stats = {n: b.detach().cpu() for n, b in m.named_buffers() if "running" in n}
+    return out["logits"].detach().cpu(), grads, stats
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+
+def check_reference_vgg_bn(torch):
+    """reference_vgg_bn: a small BCNN on VGG-16-BN in float64, card against
+    CPU (logits, every gradient, every running statistic within 1e-8 of the
+    tensor's largest value; a conv bias under BatchNorm, whose gradient is 0
+    in exact arithmetic, of its kernel's); ``fast_dgrad``'s ``dx`` and
+    ``dw`` against autograd of the plain conv on the card in float64 (x
+    [8, 64, 112, 112], the 64->64 shape it serves); the VGG-16-BN
+    classifier's eval forward at 224x224, 200 classes, card against CPU in
+    float64. TF32 off."""
+    import torch.nn.functional as F
+
+    from hawkeye_tpu_torch import BACKBONE
+    from hawkeye_tpu_torch.engine.trainer import set_tf32
+    from hawkeye_tpu_torch.models import init_parameters
+    from hawkeye_tpu_torch.ops.conv import conv3x3_same_fast_dgrad
+
+    set_tf32(False)
+    (lc, gc, sc), (lg, gg, sg) = (_bcnn_bn_case(torch, dev) for dev in ("cpu", "cuda"))
+
+    def grad_err(n):
+        scale = gc[n]
+        kernel = n[:-len("bias")] + "weight"
+        if n.endswith("bias") and kernel in gc and gc[n].dim() == 1 and "features" in n:
+            scale = torch.cat([gc[n].flatten(), gc[kernel].flatten()])
+        return float((gg[n] - gc[n]).abs().max() / scale.abs().max().clamp_min(1e-300))
+
+    grads = {n: grad_err(n) for n in gc}
+    worst = max(grads, key=grads.get)
+    bcnn = {"logits": _rel(lg, lc), "grad_max": grads[worst], "grad_worst": worst,
+            "stats_max": max(_rel(sg[n], sc[n]) for n in sc), "bn_layers": 13}
+    if max(bcnn["logits"], bcnn["grad_max"], bcnn["stats_max"]) > VGG_BN_F64_TOL:
+        raise AssertionError(f"BCNN vgg16_bn card vs CPU in float64: {bcnn}")
+
+    g = torch.Generator(device="cuda").manual_seed(53)
+    kw = dict(device="cuda", dtype=torch.float64, generator=g)
+    x = torch.randn((8, 64, 112, 112), **kw)
+    w = torch.randn((64, 64, 3, 3), **kw) * 0.05
+    dy = torch.randn((8, 64, 112, 112), **kw)
+    xs = [x.clone().requires_grad_() for _ in range(2)]
+    ws = [w.clone().requires_grad_() for _ in range(2)]
+    conv3x3_same_fast_dgrad(xs[0], ws[0]).backward(dy)
+    F.conv2d(xs[1], ws[1], padding=1).backward(dy)
+    dgrad = {"dx": _rel(xs[0].grad, xs[1].grad), "dw": _rel(ws[0].grad, ws[1].grad)}
+    if max(dgrad.values()) > 1e-10:
+        raise AssertionError(f"fast_dgrad against autograd in float64: {dgrad}")
+
+    m = BACKBONE.get("vgg16_bn")(num_classes=200, dtype=torch.float64,
+                                  efficient_pool=False)
+    gen = torch.Generator().manual_seed(54)
+    init_parameters(m, gen)
+    _bn_at_random(torch, m, gen)
+    m.double().eval()
+    x = torch.randn((2, 224, 224, 3), generator=gen, dtype=torch.float64)
+    with torch.no_grad():
+        want = m(x)["logits"]
+        got = m.cuda()(x.cuda())["logits"].cpu()
+    classifier = {"logits": _rel(got, want), "shape": list(got.shape)}
+    if classifier["logits"] > VGG_BN_F64_TOL:
+        raise AssertionError(f"VGG-16-BN classifier card vs CPU: {classifier}")
+    del m
+    torch.cuda.empty_cache()
+    emit("reference_vgg_bn", model="BCNN vgg16_bn 64x64 b4, 200 classes, float64, "
+         "BatchNorm at random, one train-mode step; fast_dgrad x [8,64,112,112] float64; "
+         "vgg16_bn classifier 224x224 b2 eval float64; TF32 off",
+         bcnn_rel_err_of_max=bcnn, fast_dgrad_vs_autograd=dgrad,
+         classifier_rel_err_of_max=classifier,
+         tolerances={"float64": VGG_BN_F64_TOL, "fast_dgrad": 1e-10})
+
+
+def run_slice_vgg_bn(torch, run_dir, s1_want, s2_want):
+    """slice_vgg_bn: BCNN on ``vgg16_bn`` through its Example trainer at
+    448x448, 200 classes, batch 8, synthetic data: stage 1 from
+    ``configs/BCNN_S1.yaml``, then stage 2 from ``BCNN_S2.yaml`` with
+    ``model.load`` at stage 1's best model, ``fused_pooling: true`` and
+    ``experiment.profile: true`` (its trace file must exist), each stage's
+    launches equal to the plain BCNN's (``s1_want``, ``s2_want``, from
+    phase 5), the Tester equal to the trained model; then one stage-2 step
+    with ``model.fast_dgrad: true`` on plain VGG-16. Returns the launches."""
+    from hawkeye_tpu_torch.examples.BCNN import BCNNTrainer
+    from hawkeye_tpu_torch.models.backbones.norm import BatchNorm
+
+    common = {"dataset": {"name": "synthetic", "length": 32, "num_workers": 8,
+                          "num_classes": 200},
+              "train": {"epoch": 1}}
+    s1_over = dict(common, experiment={"log_dir": run_dir, "name": "bcnn_bn_s1"},
+                   model={"num_classes": 200, "backbone": "vgg16_bn"})
+    tr, s1 = _train_stage(torch, BCNNTrainer, "BCNN_S1.yaml", run_dir, s1_over, s1_want)
+    if sum(isinstance(m, BatchNorm) for m in tr.model.modules()) != 13:
+        raise AssertionError("BCNN stage 1 is not on VGG-16 with 13 BatchNorms")
+    s1_best = os.path.join(tr.log_root, "best_model.msgpack")
+    s1_state = {k: v.detach().cpu().clone() for k, v in tr.model.state_dict().items()}
+    del tr
+    torch.cuda.empty_cache()
+
+    s2_over = dict(common, experiment={"log_dir": run_dir, "name": "bcnn_bn_s2",
+                                       "profile": True},
+                   model={"num_classes": 200, "backbone": "vgg16_bn", "load": s1_best,
+                          "fused_pooling": True})
+    tr, s2 = _train_stage(torch, BCNNTrainer, "BCNN_S2.yaml", run_dir, s2_over, s2_want,
+                          loads=s1_state)
+    trace = os.path.join(tr.log_root, "profile", "trace.json")
+    if not os.path.exists(trace) or os.path.getsize(trace) == 0:
+        raise AssertionError(f"experiment.profile wrote no trace at {trace}")
+    # the Tester's one val batch and the logits' forward: 5 pools and a Gram each
+    top1 = _tester_matches(torch, tr, "BCNN_S2.yaml", run_dir, s2_over, want_launches={
+        "pool_fwd": 10, "pool_bwd": 0, "gram_signed_sqrt": 2})
+    del tr
+    torch.cuda.empty_cache()
+
+    dg_over = {"experiment": {"log_dir": run_dir, "name": "bcnn_fast_dgrad"},
+               "dataset": dict(common["dataset"], length=8), "train": {"epoch": 1},
+               "model": {"num_classes": 200, "backbone": "vgg16", "load": None,
+                         "fused_pooling": True, "fast_dgrad": True}}
+    forwards = 1 + 2 * 1  # one step, val_first and the epoch's validation
+    dg_want = {"pool_fwd": 5 * forwards, "pool_bwd": 5, "gram_signed_sqrt": forwards}
+    tr, dg = _train_stage(torch, BCNNTrainer, "BCNN_S2.yaml", run_dir, dg_over, dg_want)
+    if not tr.model.backbone.fast_dgrad:
+        raise AssertionError("model.fast_dgrad did not reach the trunk")
+    del tr
+    torch.cuda.empty_cache()
+    emit("slice_vgg_bn", model="BCNN vgg16_bn 448x448 200 classes, synthetic, "
+         "BCNN Example trainer", batch=B, stage1=s1, stage2=s2,
+         stage2_loaded_stage1_weights=True, stage2_profile_trace=os.path.relpath(
+             trace, run_dir), tester_top1=top1, tester_logits_equal_trainer=True,
+         launches_equal_plain_bcnn=True, fast_dgrad_vgg16_stage2_step=dg)
+    return {k: s1["launches"][k] + s2["launches"][k] + dg["launches"][k]
+            for k in ZERO_LAUNCHES}
+
+
+def run_throughput_vgg_bn(torch, run_dir):
+    """throughput_vgg_bn: ``bcnn_bn_train_images_per_sec``, BCNN stage 2 on
+    VGG-16-BN at 448x448 (``profile_step --model bcnn_bn``), batch 128 and
+    the recipe's 8, with the peak memory and ``profile_step``'s device idle
+    share and time by category."""
+    from hawkeye_tpu_torch.profile_step import bench_trainer, profile_batch
+
+    for batch in (128, B):
+        trainer = bench_trainer("bcnn_bn", run_dir, batch)
+        r = _train_rate(torch, trainer, "bcnn_bn", batch)
+        del trainer
+        torch.cuda.empty_cache()
+        prof = profile_batch("bcnn_bn", batch, 5, run_dir)
+        _emit_rate(torch, "bcnn_bn", r, {"pool_fwd": 5.0, "pool_bwd": 5.0,
+                                         "gram_signed_sqrt": 1.0},
+                   phase="throughput_vgg_bn",
+                   device_idle_share=prof["device_idle_share"],
+                   device_kernel_ms_per_step=prof["device_kernel_ms_per_step"],
+                   profiled_wall_ms_per_step=prof["wall_ms_per_step"],
+                   ms_per_step_by_category=prof["ms_per_step_by_category"])
+
+
+def _dist_trainer(torch, case, config, device):
+    """The port's Trainer for one case of the distributed phase: ``small``
+    a float64 classifier (ResNet-18 at 64x64 and a float64 head on the mean
+    of its ``c5``: the Baseline's ``pool`` is float32), ``full`` the
+    Baseline recipe's ResNet-50 (bf16 trunk, float32 head)."""
+    from hawkeye_tpu_torch import BACKBONE
+    from hawkeye_tpu_torch.config import setup_config
+    from hawkeye_tpu_torch.engine import Trainer
+
+    class F64Net(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.backbone = BACKBONE.get("resnet18")(dtype=torch.float64)
+            self.fc = torch.nn.Linear(self.backbone.out_channels, 200)
+            self.double()
+
+        def forward(self, x):
+            return {"logits": self.fc(self.backbone(x)["c5"].mean(dim=(1, 2)))}
+
+    class DistTrainer(Trainer):
+        def get_tb_writer(self):
+            return None
+
+        def get_model(self, model_config):
+            if case == "small":
+                return F64Net()
+            return super().get_model(model_config)
+
+    return DistTrainer(setup_config(argv=["--config", config]), device=device)
+
+
+def _dist_step(torch, case, spec, rank=0, world=1, device="cuda:0"):
+    trainer = _dist_trainer(torch, case, spec["config"], device)
+    trainer.model.load_state_dict(spec["init"])
+    per = spec["batch"]["label"].shape[0] // world
+    local = {k: v[rank * per:(rank + 1) * per].numpy() for k, v in spec["batch"].items()}
+    m = trainer.train_step_call(trainer.prepare_batch(local, train=True), spec["lr"])
+    return {"state": {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()},
+            "metrics": {k: float(v) for k, v in m.items()},
+            "world": [trainer.rank, trainer.world_size],
+            "cross_replica": all(getattr(b, "cross_replica", True)
+                                 for b in trainer.model.modules())}
+
+
+def dist_worker(argv):
+    """``chip_smoke.py --distributed-worker RANK WORLD PORT DIR``: one rank
+    of the distributed phase, in a gloo group over CUDA tensors on the one
+    card (NCCL refuses two ranks on one device)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    rank, world, port = (int(a) for a in argv[:3])
+    d = argv[3]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        for case in ("small", "full"):
+            spec = torch.load(os.path.join(d, f"{case}.pt"), weights_only=False)
+            torch.save(_dist_step(torch, case, spec, rank, world),
+                       os.path.join(d, f"{case}_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_distributed(torch, run_dir):
+    """distributed: one Baseline-shaped train step at a global batch of 16
+    on two ranks (``chip_smoke.py --distributed-worker``, gloo over CUDA
+    tensors on this card, 8 rows each) against one process at 16, from the
+    same weights, through the port's Trainer (the gradient average and
+    global-batch BatchNorm): ``small`` in float64 (ResNet-18, 64x64, a
+    float64 head), every parameter's update and every running statistic
+    within 1e-10 of the tensor's largest value; ``full``, the Baseline
+    recipe's ResNet-50 at 448x448 (bf16, Adam), the agreement printed. The
+    two ranks' models must be identical, and their mean loss the single
+    process's (1e-10 in float64)."""
+    import socket
+
+    d = os.path.join(run_dir, "distributed")
+    os.makedirs(d)
+    ref, before = {}, {}
+    for case, size in (("small", 64), ("full", 448)):
+        os.makedirs(os.path.join(d, case))
+        config = _recipe("Baseline.yaml", os.path.join(d, case), {
+            "experiment": {"log_dir": d, "name": f"dist_{case}", "debug": True},
+            "dataset": {"name": "synthetic", "length": 16, "batch_size": 16,
+                        "num_workers": 0, "num_classes": 200,
+                        "transformer": {"image_size": size, "resize_size": size * 8 // 7}},
+            "model": {"num_classes": 200},
+            # SGD for the float64 case: Adam's first step moves each weight
+            # by about the rate whatever its gradient
+            **({"train": {"optimizer": {"name": "SGD", "lr": 0.05, "momentum": 0.9,
+                                        "weight_decay": 1e-4}}}
+               if case == "small" else {})})
+        gen = torch.Generator().manual_seed(71)
+        batch = {"img": torch.randn((16, size, size, 3), generator=gen),
+                 "label": torch.randint(0, 200, (16,), generator=gen)}
+        if case == "small":
+            batch["img"] = batch["img"].double()
+        trainer = _dist_trainer(torch, case, config, "cuda:0")
+        init = {k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()}
+        lr = float(trainer.config.train.optimizer.lr)
+        del trainer
+        spec = {"config": config, "init": init, "batch": batch, "lr": lr}
+        torch.save(spec, os.path.join(d, f"{case}.pt"))
+        ref[case] = _dist_step(torch, case, spec)
+        before[case] = init
+        torch.cuda.empty_cache()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.time()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), DIST_WORKER,
+                               str(r), "2", str(port), d],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        raise AssertionError("a distributed rank failed:\n" + "\n".join(logs)[-6000:])
+    seconds = time.time() - t0
+    report = {}
+    for case in ("small", "full"):
+        ranks = [torch.load(os.path.join(d, f"{case}_rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+        if [g["world"] for g in ranks] != [[0, 2], [1, 2]] or not all(
+                g["cross_replica"] for g in ranks):
+            raise AssertionError(f"{case}: ranks {[g['world'] for g in ranks]}")
+        same = all(torch.equal(v, ranks[1]["state"][k]) for k, v in ranks[0]["state"].items())
+        errs = {}
+        for k, want in ref[case]["state"].items():
+            got = ranks[0]["state"][k]
+            if not want.is_floating_point():
+                continue
+            if "running" in k:
+                errs[k] = _rel(got.double(), want.double())
+            else:  # the update
+                b = before[case][k].double()
+                errs[k] = _rel(got.double() - b, want.double() - b)
+        worst = max(errs, key=errs.get)
+        loss = sum(g["metrics"]["loss"] for g in ranks) / 2
+        row = {"ranks_identical": same, "update_or_stat_max_rel_err": errs[worst],
+               "worst": worst, "loss_two_ranks": loss,
+               "loss_one_process": ref[case]["metrics"]["loss"],
+               "loss_rel_err": abs(loss - ref[case]["metrics"]["loss"])
+               / abs(ref[case]["metrics"]["loss"])}
+        report[case] = row
+        if not same or (case == "small" and max(errs[worst], row["loss_rel_err"])
+                        > DIST_F64_TOL):
+            raise AssertionError(f"distributed {case}: {row}")
+    emit("distributed", ranks=2, backend="gloo (CUDA tensors, one card)",
+         global_batch=16, small_model="ResNet-18 64x64 with a float64 head, float64, SGD",
+         full_model="Baseline ResNet-50 448x448 bf16 trunk, the recipe's Adam",
+         workers_seconds=seconds, tolerance_small=DIST_F64_TOL, **report)
+
+
+def check_mge_fused(torch, run_dir):
+    """mge_fused: MGE-CNN's ``fused_experts`` against its sequential path on
+    the card in float64 (ResNet-18 trunks, 64x64, batch 4, a train step
+    with the labels, then the eval forward): logits, every gradient and
+    every running statistic within 1e-10 of the tensor's largest value and
+    the crop boxes identical; then ``mge_cnn_fused_train_images_per_sec``
+    beside the sequential rate at the recipe's batch 4, 224x224."""
+    from hawkeye_tpu_torch.profile_step import bench_trainer
+
+    seq, fused = (_s3n_mge_case(torch, "mge", torch.float64, "cuda", experts_fused=f)
+                  for f in (False, True))
+    (ls, gs, ss, ps), (lf, gf, sf, pf) = seq, fused
+    grads = {n: _rel(gf[n], gs[n]) for n in gs}
+    worst = max(grads, key=grads.get)
+    row = {"logits": _rel(lf, ls), "grad_max": grads[worst], "grad_worst": worst,
+           "stats_max": max(_rel(sf[n], ss[n]) for n in ss),
+           "boxes_differing": sum(int(not torch.equal(p, q)) for p, q in zip(pf, ps)),
+           "boxes": len(ps)}
+    if (max(row["logits"], row["grad_max"], row["stats_max"]) > MGE_FUSED_TOL
+            or row["boxes_differing"] or len(pf) != len(ps)):
+        raise AssertionError(f"MGE fused vs sequential on the card: {row}")
+    rates = {}
+    for name in ("mge", "mge_fused"):
+        trainer = bench_trainer(name, run_dir, 4)
+        if trainer.model.fused_experts != (name == "mge_fused"):
+            raise AssertionError(f"{name}: fused_experts {trainer.model.fused_experts}")
+        rates[name] = _train_rate(torch, trainer, name, 4)
+        del trainer
+        torch.cuda.empty_cache()
+        if rates[name]["launches_per_step"] != {k: 0.0 for k in ZERO_LAUNCHES}:
+            raise AssertionError(f"{name} launched {rates[name]['launches_per_step']}")
+    emit("mge_fused", model="MGE-CNN four resnet18 64x64 b4 float64, 200 classes; "
+         "rates: four resnet50 224x224 b4 bf16, Adam", fused_vs_sequential_float64=row,
+         tolerance=MGE_FUSED_TOL,
+         mge_cnn_fused_train_images_per_sec=rates["mge_fused"]["images_per_sec"],
+         mge_cnn_train_images_per_sec=rates["mge"]["images_per_sec"],
+         fused=rates["mge_fused"], sequential=rates["mge"],
+         device=torch.cuda.get_device_name(0), nvidia_smi=nvidia_smi_line())
+
+
+def check_mixup(torch):
+    """mixup: Mixup and CutMix of a batch of 32 448x448 images on the card
+    against the CPU at the same draws (from a seeded CPU generator): the
+    images and soft labels within 1e-6, CutMix's mask identical; and the
+    time of one call drawing on the card, between CUDA events over 10
+    calls (host time included where it is longer)."""
+    from hawkeye_tpu_torch.data.mixup import draw, mixup_cutmix
+
+    gen = torch.Generator().manual_seed(61)
+    images = torch.rand((32, 448, 448, 3), generator=gen)
+    labels = torch.randint(0, 200, (32,), generator=gen)
+    rows = {}
+    for kind in ("mixup", "cutmix"):
+        d = {k: v.item() for k, v in draw(gen).items()}
+        d.update(apply=True, cutmix=kind == "cutmix")
+        cpu = mixup_cutmix(images, labels, 200, draws=d)
+        card = [t.cpu() for t in mixup_cutmix(images.cuda(), labels.cuda(), 200, draws=d)]
+        rolled = torch.roll(images, 1, 0)
+        mask_same = torch.equal((card[0] == rolled).all(-1), (cpu[0] == rolled).all(-1))
+        rows[kind] = {"lam": d["lam"], "images_max_abs_err": float((card[0] - cpu[0]).abs().max()),
+                      "labels_max_abs_err": float((card[1] - cpu[1]).abs().max()),
+                      "mask_identical": mask_same}
+        if max(rows[kind]["images_max_abs_err"], rows[kind]["labels_max_abs_err"]) > MIXUP_TOL \
+                or not mask_same:
+            raise AssertionError(f"mixup {kind} card vs CPU: {rows[kind]}")
+    img, lab = images.cuda(), labels.cuda()
+    g = torch.Generator(device="cuda").manual_seed(62)
+    for _ in range(3):  # warm-up
+        mixup_cutmix(img, lab, 200, p=1.0, generator=g)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(10):  # a generator's draws cannot be captured in a CUDA graph
+        mixup_cutmix(img, lab, 200, p=1.0, generator=g)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / 10
+    emit("mixup", batch=32, image_size=448, tolerance=MIXUP_TOL, **rows,
+         ms_per_call_drawing_on_the_card=ms)
+
+
 def main():
     import torch
 
@@ -2276,7 +2841,8 @@ def main():
     shutil.rmtree(run_dir, ignore_errors=True)
     os.makedirs(run_dir)
     try:
-        trainer, launches = run_slice(torch, run_dir)
+        trainer, launches, s1_launches = run_slice(torch, run_dir)
+        s2_launches = dict(launches)
         run_throughput(torch, trainer)
         del trainer
         torch.cuda.empty_cache()
@@ -2295,6 +2861,14 @@ def main():
         run_region(torch, run_dir)
         check_reference_s3n_mge(torch)
         run_s3n_mge(torch, run_dir)
+        check_native_decoder(torch, run_dir)
+        check_reference_vgg_bn(torch)
+        for k, v in run_slice_vgg_bn(torch, run_dir, s1_launches, s2_launches).items():
+            launches[k] += v
+        run_throughput_vgg_bn(torch, run_dir)
+        run_distributed(torch, run_dir)
+        check_mge_fused(torch, run_dir)
+        check_mixup(torch)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
 
@@ -2321,4 +2895,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [DIST_WORKER]:
+        sys.exit(dist_worker(sys.argv[2:]))
     sys.exit(main())

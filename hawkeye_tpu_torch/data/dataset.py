@@ -7,9 +7,13 @@ in ``metadata/`` (same format).
 
 Additions over the reference, as in the JAX package:
 - ``decode_size``: when set, the dataset performs only decode + fixed-size
-  host prep (resize-shorter + center crop with PIL) and returns uint8
-  arrays; the rest of the augmentation runs batched on the device
-  (``transforms_device.py``).
+  host prep (resize-shorter + center crop) and returns uint8 arrays; the
+  rest of the augmentation runs batched on the device
+  (``transforms_device.py``). A JPEG goes through the native decoder
+  (``native_decoder.py``: libjpeg's DCT scaling, then one fused bilinear
+  resize and crop), byte for byte the JAX package's; any other file, a
+  corrupt one, or every file where the library cannot be built, through
+  PIL.
 - ``SyntheticDataset``: deterministic random images, so trainers/benchmarks
   run end-to-end without the (non-redistributable) image files.
 """
@@ -21,6 +25,7 @@ import os
 import numpy as np
 from PIL import Image
 
+from . import native_decoder
 from .transforms_host import center_crop, resize_shorter
 
 
@@ -81,15 +86,16 @@ class FGDataset:
 
     def __getitem__(self, index):
         path = os.path.join(self.root, self.paths[index])
-        img = load_rgb(path)
         if self.decode_size is not None:
-            img = center_crop(resize_shorter(img, self.decode_size),
-                              self.decode_size)
-            arr = np.asarray(img, np.uint8)
-        elif self.transform is not None:
-            arr = self.transform(img)
+            arr = native_decoder.decode_resize_center(path, self.decode_size)
+            if arr is None:
+                img = center_crop(resize_shorter(load_rgb(path), self.decode_size),
+                                  self.decode_size)
+                arr = np.asarray(img, np.uint8)
         else:
-            arr = np.asarray(img, np.uint8)
+            img = load_rgb(path)
+            arr = (self.transform(img) if self.transform is not None
+                   else np.asarray(img, np.uint8))
         data = {"img": arr, "label": int(self.labels[index])}
         if self.return_id:
             data["id"] = index

@@ -21,11 +21,33 @@ skips a parameter whose ``.grad`` is None. ``train_step_call`` therefore
 gives every parameter without a gradient a zero one before the update.
 
 TPU mechanisms that do not come across, with their config keys still read
-and ignored: the device mesh and batch padding to a device multiple,
+and ignored: batch padding to a device multiple,
 ``train.steps_per_dispatch``, ``train.remat``, ``train.async_checkpoint``.
 Validation needs no padding: each batch's loss is its mean over its real
 samples and the epoch's loss the mean over batches, as the JAX trainer's
 weight-0 padding gives.
+
+Data parallelism over processes (``torchrun --nproc_per_node=N -m
+hawkeye_tpu_torch.train ...``; ``parallel/``), the counterpart of the JAX
+Trainer's sharded global batch: the process group comes from ``torchrun``'s
+environment (or is the caller's), each process runs on ``cuda:LOCAL_RANK``
+(or the device the caller names) and loads its slice of every global batch
+of ``dataset.batch_size`` rows (``dataset.num_processes`` and
+``dataset.process_index`` default to the world size and rank, as the JAX
+Trainer reads them; the val tail is padded with weight-0 rows). The ranks
+start from rank 0's weights, BatchNorm takes its statistics over the global
+batch (``norm.set_cross_replica``), and the gradients are averaged over the
+ranks after the backward: train batches are full (``drop_last``), so that
+mean of per-rank mean losses is the JAX step's global mean. Train metrics
+and validation's sums are all-reduced, so a padded val row counts nowhere
+and each val batch's loss is its mean over the global batch's real rows.
+Rank 0 alone writes the log, TensorBoard, the config snapshot and
+checkpoints.
+
+``experiment.profile``: ``torch.profiler`` traces steps 3-8 of epoch 0
+(CPU and, on the card, CUDA activity) into ``<log_root>/profile`` as a
+Chrome trace, and the log says so, as the JAX Trainer's
+``jax.profiler`` trace does.
 
 ``dataset.pipeline: device`` (the JAX Trainer's device pipeline): the host
 only decodes to uint8 ``[R, R, 3]`` (``R = transformer.resize_size`` or
@@ -44,12 +66,11 @@ names a local file, loaded after the init and before ``model.load`` as
 ``models/weights.load_pretrained_backbone`` does (``model.pretrain_kind``:
 ``resnet`` by default, ``vgg`` or ``bbn_inat``); a missing file logs
 ``training from scratch`` and keeps the init, as in the JAX package.
-
-Not ported yet: multi-process data sharding, ``experiment.profile``.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import shutil
 import sys
@@ -67,10 +88,21 @@ from ..data import (
     SyntheticDataset,
     build_transforms,
 )
+from ..data import native_decoder
 from ..data.transforms_device import make_eval_transform, make_train_augment
 from ..losses import build_criterion
 from ..models import build_model, init_parameters
+from ..models.backbones.norm import set_cross_replica
 from ..models.weights import load_pretrained_backbone
+from ..parallel import (
+    PaddingAwareDataset,
+    ProcessShardedBatchSampler,
+    all_reduce_sum,
+    average_gradients,
+    broadcast_module,
+    init_from_env,
+    local_rank,
+)
 from ..utils import (
     AverageMeter,
     PerformanceMeter,
@@ -116,6 +148,12 @@ class Trainer:
         self.device = resolve_device(device)
         set_tf32(False)
         self.config = config if config is not None else setup_config()
+        self.rank, self.world_size = init_from_env(self.device.type)
+        if self.device.type == "cuda" and device is None and self.world_size > 1:
+            self.device = torch.device("cuda", local_rank())
+        if self.device.index is not None and self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        self.is_main = self.rank == 0
 
         self.epoch = 0
         self.start_epoch = 0
@@ -131,21 +169,22 @@ class Trainer:
             self.config.experiment.log_dir, self.config.experiment.name
         )
 
-        # log root must not pre-exist (reference train.py:55) unless resuming
-        if not self.resume and not self.debug:
-            assert not os.path.exists(self.log_root), (
-                f"Experiment log folder already exists: {self.log_root}"
-            )
-        os.makedirs(self.log_root, exist_ok=True)
-        # snapshot config + entry script (reference train.py:59-62)
-        with open(os.path.join(self.log_root, "train_config.yaml"), "w") as f:
-            f.write(str(self.config))
-        try:
-            shutil.copyfile(
-                sys.argv[0], os.path.join(self.log_root, os.path.basename(sys.argv[0]))
-            )
-        except (OSError, shutil.SameFileError):
-            pass
+        if self.is_main:  # rank 0 alone writes
+            # log root must not pre-exist (reference train.py:55) unless resuming
+            if not self.resume and not self.debug:
+                assert not os.path.exists(self.log_root), (
+                    f"Experiment log folder already exists: {self.log_root}"
+                )
+            os.makedirs(self.log_root, exist_ok=True)
+            # snapshot config + entry script (reference train.py:59-62)
+            with open(os.path.join(self.log_root, "train_config.yaml"), "w") as f:
+                f.write(str(self.config))
+            try:
+                shutil.copyfile(
+                    sys.argv[0], os.path.join(self.log_root, os.path.basename(sys.argv[0]))
+                )
+            except (OSError, shutil.SameFileError):
+                pass
 
         self.logger = self.get_logger()
         self.tb_writer = self.get_tb_writer()
@@ -156,7 +195,9 @@ class Trainer:
         self._model_generator = None  # made on first use (model_generator)
         name = (torch.cuda.get_device_name(self.device)
                 if self.device.type == "cuda" else "cpu")
-        self.logger.info(f"Device: {self.device} ({name})")
+        self.logger.info(f"Device: {self.device} ({name})"
+                         + (f", rank {self.rank} of {self.world_size} processes"
+                            if self.world_size > 1 else ""))
 
         self.pipeline = self.config.dataset.get("pipeline", "host")
         if self.pipeline == "device":
@@ -174,6 +215,9 @@ class Trainer:
         self.transformers = self.get_transformers(self.config.dataset.transformer)
         self.collate_fn = self.get_collate_fn()
         self.datasets = self.get_dataset(self.config.dataset)
+        if any(isinstance(d, FGDataset) and d.decode_size is not None
+               for d in self.datasets.values()):
+            self.logger.info(f"JPEG decode: {native_decoder.describe()}")
         self.dataloaders = self.get_dataloader(self.config.dataset)
 
         # model
@@ -185,6 +229,9 @@ class Trainer:
             self.logger.info(f"Loading model weights from {self.config.model.load}")
             ckpt.load_model(self.config.model.load, self.model, logger=self.logger)
         self.model.to(self.device)
+        if self.world_size > 1:
+            set_cross_replica(self.model, True)  # the global batch's statistics
+            broadcast_module(self.model)
         self.logger.info(f"Building model {self.config.model.name} OK!")
 
         # criterion / optimizer / scheduler
@@ -213,9 +260,16 @@ class Trainer:
     # factories (the reference's override surface, train.py:134-218)
     # ------------------------------------------------------------------
     def get_logger(self):
+        if not self.is_main:
+            quiet = logging.getLogger(f"hawkeye.rank{self.rank}")
+            quiet.handlers = [logging.NullHandler()]
+            quiet.propagate = False
+            return quiet
         return get_logger("hawkeye", log_dir=self.log_root)
 
     def get_tb_writer(self):
+        if not self.is_main:
+            return None
         try:
             from tensorboardX import SummaryWriter
 
@@ -274,17 +328,22 @@ class Trainer:
         return SequentialBatchSampler(n, bs, drop_last=False)
 
     def get_dataloader(self, ds_config):
-        if int(ds_config.get("num_processes", 1)) > 1:
-            raise NotImplementedError(
-                "multi-process data sharding is not ported yet")
         workers = int(ds_config.get("num_workers", 4))
-        return {
-            split: DataLoader(self.datasets[split],
-                              self.get_sampler(split, ds_config),
-                              num_workers=workers,
-                              collate_fn=self.collate_fn[split])
-            for split in self.datasets
-        }
+        # each process loads only its slice of every global batch; the keys
+        # make the slicing testable in one process, as in the JAX Trainer
+        n_proc = int(ds_config.get("num_processes", self.world_size))
+        proc_idx = int(ds_config.get("process_index", self.rank))
+        loaders = {}
+        for split in self.datasets:
+            dataset = self.datasets[split]
+            sampler = self.get_sampler(split, ds_config)
+            if n_proc > 1:
+                sampler = ProcessShardedBatchSampler(
+                    sampler, process_index=proc_idx, process_count=n_proc)
+                dataset = PaddingAwareDataset(dataset)
+            loaders[split] = DataLoader(dataset, sampler, num_workers=workers,
+                                        collate_fn=self.collate_fn[split])
+        return loaders
 
     def get_model(self, model_config):
         return build_model(model_config, self.config.dataset.transformer.image_size)
@@ -402,6 +461,7 @@ class Trainer:
         self.optimizer.zero_grad(set_to_none=False)
         loss, outputs = self.forward_train(batch)
         loss.backward()
+        average_gradients(self.model.parameters())  # no-op in one process
         self.transform_grads(batch)
         for group in self.optimizer.param_groups:
             for p in group["params"]:
@@ -501,14 +561,24 @@ class Trainer:
         loader.set_epoch(self.epoch)
         totals = None  # device sums, read once at the end of the epoch
         n = 0
-        try:
-            from tqdm import tqdm
+        profiler = None
+        profile = (bool(self.config.experiment.get("profile", False))
+                   and self.epoch == 0 and self.is_main)
+        iterator = loader
+        if self.is_main:  # one progress bar, rank 0's
+            try:
+                from tqdm import tqdm
 
-            iterator = tqdm(loader, total=len(loader), leave=False,
-                            desc=f"epoch {self.epoch}", mininterval=1.0)
-        except ImportError:
-            iterator = loader
+                iterator = tqdm(loader, total=len(loader), leave=False,
+                                desc=f"epoch {self.epoch}", mininterval=1.0)
+            except ImportError:
+                pass
         for batch in iterator:
+            if profile and n == 3:  # steps 3-8 of epoch 0, as the JAX Trainer
+                profiler = self._start_profile()
+            if profiler is not None and n == 8:
+                self._stop_profile(profiler)
+                profiler = profile = None
             self.on_start_batch(batch)
             metrics = self.train_step_call(self.prepare_batch(batch, train=True),
                                            self.batch_lr(lr))
@@ -516,14 +586,36 @@ class Trainer:
                       {k: totals[k] + metrics[k] for k in totals})
             n += 1
             self.on_end_batch(metrics)
+        if profiler is not None:  # an epoch of fewer than 9 steps
+            self._stop_profile(profiler)
         if totals is None:
             return {"acc": 0.0, "loss": 0.0, "count": 0.0}
-        totals = {k: float(v) for k, v in totals.items()}
+        sums = all_reduce_sum(torch.stack(
+            [totals[k].double() for k in ("correct", "count", "loss")])).tolist()
+        correct, count, loss = sums
         return {
-            "acc": 100.0 * totals["correct"] / max(totals["count"], 1.0),
-            "loss": totals["loss"] / max(n, 1),
-            "count": totals["count"],
+            "acc": 100.0 * correct / max(count, 1.0),
+            # the mean over steps of the mean over ranks of each rank's loss
+            "loss": loss / max(n, 1) / self.world_size,
+            "count": count,
         }
+
+    def _start_profile(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profile(self, profiler):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        profile_dir = os.path.join(self.log_root, "profile")
+        os.makedirs(profile_dir, exist_ok=True)
+        profiler.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+        self.logger.info(f"profiler trace written to {profile_dir}")
 
     def batch_lr(self, epoch_lr):
         """Per-step LR hook (per-batch cosine recipes override this)."""
@@ -533,19 +625,24 @@ class Trainer:
         loader = self.dataloaders.get("val")
         if loader is None:
             return {"acc": 0.0, "loss": 0.0}
-        totals = None
-        n = 0
+        rows = []  # per batch: loss, correct, count (device scalars)
         for batch in loader:
-            metrics = self.eval_step_call(self.prepare_batch(batch, train=False))
-            totals = (dict(metrics) if totals is None else
-                      {k: totals[k] + metrics[k] for k in totals})
-            n += 1
-        if totals is None:
+            m = self.eval_step_call(self.prepare_batch(batch, train=False))
+            rows.append(torch.stack([m["loss"].double(), m["correct"].double(),
+                                     m["count"].double()]))
+        if not rows:
             return {"acc": 0.0, "loss": 0.0}
-        totals = {k: float(v) for k, v in totals.items()}
+        rows = torch.stack(rows)
+        if self.world_size > 1:
+            # each batch's loss over the global batch's real rows: the ranks'
+            # means weighted by their counts (a weight-0 pad counts nowhere)
+            rows[:, 0] *= rows[:, 2]
+            all_reduce_sum(rows)
+            rows[:, 0] /= rows[:, 2].clamp_min(1.0)
+        loss_sum, correct, count = rows.sum(0).tolist()
         return {
-            "acc": 100.0 * totals["correct"] / max(totals["count"], 1.0),
-            "loss": totals["loss"] / max(n, 1),
+            "acc": 100.0 * correct / max(count, 1.0),
+            "loss": loss_sum / len(rows),
         }
 
     def report(self, epoch, lr, train_metrics, val_metrics, images_per_sec):
@@ -562,9 +659,12 @@ class Trainer:
     # checkpointing (reference train.py:369-395)
     # ------------------------------------------------------------------
     def save_model(self, path):
-        ckpt.save_model(path, self.model)
+        if self.is_main:
+            ckpt.save_model(path, self.model)
 
     def save_checkpoint(self, path=None):
+        if not self.is_main:
+            return
         path = path or os.path.join(self.log_root,
                                     f"checkpoint_epoch_{self.epoch}.pt")
         ckpt.save_checkpoint(

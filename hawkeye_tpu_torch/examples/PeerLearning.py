@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..engine import Trainer
+from ..parallel import all_reduce_sum
 from ..train import main
 from ..utils import PerformanceMeter
 
@@ -58,7 +59,8 @@ class PLTrainer(Trainer):
         self._peer_sums = None
         out = super().train_epoch(lr)
         if self._peer_sums is not None:
-            c1, c2, n = (float(v) for v in self._peer_sums)  # one read per epoch
+            c1, c2, n = all_reduce_sum(torch.stack(  # one read per epoch
+                [v.double() for v in self._peer_sums])).tolist()
             n = max(n, 1.0)
             acc1, acc2 = 100.0 * c1 / n, 100.0 * c2 / n
             self.performance_meters["train"]["acc1"].update(acc1)

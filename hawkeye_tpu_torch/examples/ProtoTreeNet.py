@@ -19,6 +19,7 @@ import torch
 
 from ..engine import Trainer
 from ..losses.prototree import leaf_update
+from ..parallel import all_reduce_sum
 from ..train import main
 
 
@@ -58,8 +59,11 @@ class ProtoTreeTrainer(Trainer):
         metrics = super().train_step_call(batch, lr)
         with torch.no_grad():
             leaves = self.model.dist_params
-            leaves.copy_(leaf_update(leaves, old, *self._leaf_inputs,
-                                     leaves.shape[1]))
+            new = leaf_update(leaves, old, *self._leaf_inputs, leaves.shape[1])
+            if self.world_size > 1:  # the update sums over the global batch
+                kept = torch.clamp_min(leaves - old, 0.0)
+                new = kept + all_reduce_sum(new - kept)
+            leaves.copy_(new)
         self._leaf_inputs = None
         return metrics
 

@@ -6,7 +6,10 @@ Counterpart of ``flax.linen.BatchNorm`` as the JAX ResNet uses it, and of
 * train mode normalises with the batch statistics in float32 and folds the
   *biased* batch variance into the running variance (``torch.nn.BatchNorm2d``
   folds the unbiased one);
-* flax's ``momentum=0.9`` means ``s' = 0.9*s + 0.1*v`` (torch momentum 0.1);
+* flax's ``momentum=0.9`` means ``s' = 0.9*s + 0.1*v`` (torch momentum 0.1),
+  with ``1 - momentum`` as ``flax.linen.BatchNorm`` computes it, a Python
+  float (``0.1`` in float32 statistics); ``GroupedBatchNorm``, as the JAX
+  package's, computes it in float32 (``0.100000024``);
 * eps 1e-5; float32 ``weight``/``bias`` (flax ``scale``/``bias``) and float32
   running statistics; the output keeps the input's dtype.
 
@@ -16,6 +19,20 @@ the batch mean and ``invstd``, from which the float32 buffers are updated
 with ``var = invstd^-2 - eps``. It has no ``num_batches_tracked``; the weight
 bridge carries ``running_mean``/``running_var`` as flax's
 ``batch_stats/{mean,var}``.
+
+Global-batch statistics (the JAX package's ``bn_cross_replica_axis`` and
+its multi-device train step, whose BatchNorm sees the whole sharded batch,
+``hawkeye_tpu/parallel/mesh.py:10-13``): with ``cross_replica`` on and a
+``torch.distributed`` world of more than one process, train mode
+all-reduces each channel's count, sum and sum of squares, with their
+gradient (an all-reduce of the gradient's parts too), and normalises
+with the global mean and the biased variance ``E[x^2] - E[x]^2`` (flax's
+fast variance, as its ``pmean`` of ``[mean, mean of squares]`` gives), then
+folds those into the running statistics with flax's momentum. Not
+``nn.SyncBatchNorm``: that folds the unbiased variance with torch's
+momentum. In a world of one process, or with it off, it is the plain path.
+``set_cross_replica(module, on)`` switches every norm layer of a model (the
+Trainer does so when it runs in more than one process).
 
 ``GroupedBatchNorm`` is the counterpart of the JAX package's module of that
 name, for the fused multi-view passes (NTS-Net's global + parts pass, S3N's
@@ -29,15 +46,65 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from ...parallel.mesh import world
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """A sum over the processes whose gradient is the sum of theirs."""
+
+    @staticmethod
+    def forward(ctx, t):
+        t = t.clone()
+        dist.all_reduce(t)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g)
+        return g
+
+
+def global_batch_stats(x, eps):
+    """(mean, biased var, invstd) per channel of NCHW ``x`` over the
+    batches of every process, differentiable: each process's count, sum and
+    sum of squares, in float32 or wider, summed by an all-reduce."""
+    all_reduce = _AllReduceSum.apply
+    c = x.shape[1]
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    dims = [d for d in range(x.dim()) if d != 1]
+    count = torch.full((1,), x.numel() // c, dtype=xf.dtype, device=x.device)
+    stats = all_reduce(torch.cat([xf.sum(dims), (xf * xf).sum(dims), count]))
+    mean = stats[:c] / stats[-1]
+    var = torch.clamp_min(stats[c:2 * c] / stats[-1] - mean * mean, 0.0)
+    return mean, var, torch.rsqrt(var + eps)
+
+
+def batch_norm_train(x, weight, bias, eps, cross_replica=False):
+    """Train-mode normalisation of NCHW ``x`` with its batch's statistics
+    (the global batch's with ``cross_replica`` in a world of more than one
+    process): (y in ``x``'s dtype, batch mean, biased variance), the
+    statistics detached and at least float32."""
+    if cross_replica and world()[1] > 1:
+        mean, var, invstd = global_batch_stats(x, eps)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        scale = (invstd * weight).view(shape)
+        y = (x.to(mean.dtype) - mean.view(shape)) * scale + bias.view(shape)
+        return y.to(x.dtype), mean.detach(), var.detach()
+    y, mean, invstd = torch.ops.aten.native_batch_norm(
+        x, weight, bias, None, None, True, 0.0, eps)
+    return y, mean, invstd.detach().pow(-2).sub_(eps)
 
 
 class BatchNorm(nn.Module):
-    def __init__(self, num_features, momentum=0.9, eps=1e-5):
+    def __init__(self, num_features, momentum=0.9, eps=1e-5, cross_replica=False):
         super().__init__()
+        self.cross_replica = bool(cross_replica)
         self.momentum = float(momentum)
-        # flax folds m*s + (1-m)*v with 1-m computed in float32
-        self._rate = float(np.float32(1.0) - np.float32(momentum))
+        self._rate = self.fold_rate(momentum)
         self.eps = float(eps)
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
@@ -50,13 +117,31 @@ class BatchNorm(nn.Module):
             return torch.ops.aten.native_batch_norm(
                 x, self.weight, self.bias, self.running_mean, self.running_var,
                 False, 0.0, self.eps)[0]
-        y, mean, invstd = torch.ops.aten.native_batch_norm(
-            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
-        with torch.no_grad():
-            var = invstd.pow(-2).sub_(self.eps)
-            self.running_mean.mul_(self.momentum).add_(mean, alpha=self._rate)
-            self.running_var.mul_(self.momentum).add_(var, alpha=self._rate)
+        y, mean, var = batch_norm_train(x, self.weight, self.bias, self.eps,
+                                        self.cross_replica)
+        self.fold(mean, var)
         return y
+
+    @staticmethod
+    def fold_rate(momentum):
+        """``1 - momentum`` as flax.linen's BatchNorm folds it."""
+        return 1.0 - float(momentum)
+
+    @torch.no_grad()
+    def fold(self, mean, var):
+        """flax's running-average update with a batch's mean and biased
+        variance."""
+        self.running_mean.mul_(self.momentum).add_(mean, alpha=self._rate)
+        self.running_var.mul_(self.momentum).add_(var, alpha=self._rate)
+
+
+def set_cross_replica(module, on=True):
+    """Global-batch statistics on (or off) in every norm layer of
+    ``module``."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.cross_replica = bool(on)
+    return module
 
 
 class GroupedBatchNorm(BatchNorm):
@@ -67,9 +152,14 @@ class GroupedBatchNorm(BatchNorm):
     of the groups' sizes, such as ``(B, B*M)``; 1 is plain ``BatchNorm``.
     Eval mode ignores it."""
 
-    def __init__(self, num_features, momentum=0.9, eps=1e-5):
-        super().__init__(num_features, momentum, eps)
+    def __init__(self, num_features, momentum=0.9, eps=1e-5, cross_replica=False):
+        super().__init__(num_features, momentum, eps, cross_replica)
         self.groups = 1
+
+    @staticmethod
+    def fold_rate(momentum):
+        """``1 - momentum`` in float32, as the JAX GroupedBatchNorm folds it."""
+        return float(np.float32(1.0) - np.float32(momentum))
 
     def forward(self, x):
         if not self.training or self.groups == 1:

@@ -26,7 +26,11 @@ takes an int G (equal contiguous groups) or a tuple of group sizes (NTS-Net's
 ``(B, B*M)``); ``bn_groups`` other than 1 without ``grouped_bn`` raises. The
 parameters and buffers are the same either way.
 
-Not ported yet: the cross-replica ``bn_cross_replica_axis``.
+``bn_cross_replica_axis`` (any value but None) gives every norm layer
+global-batch statistics over the processes of a ``torch.distributed``
+world (``backbones/norm.py``); the Trainer switches them on whenever it runs
+in more than one process, as the JAX train step's statistics span the whole
+sharded batch.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...registry import BACKBONE
-from .norm import BatchNorm, GroupedBatchNorm
+from .norm import BatchNorm, GroupedBatchNorm, batch_norm_train
 
 
 def _conv(conv, x, dtype):
@@ -113,12 +117,14 @@ class ResNet(nn.Module):
     def __init__(self, block_cls, stage_sizes, num_classes=0, groups=1,
                  width_per_group=64, dtype=torch.bfloat16, bn_momentum=0.9,
                  bn_epsilon=1e-5, strides=(1, 2, 2, 2),
-                 stem_space_to_depth=False, grouped_bn=False):
+                 stem_space_to_depth=False, grouped_bn=False,
+                 bn_cross_replica_axis=None):
         super().__init__()
         self.dtype = dtype
         self.grouped_bn = bool(grouped_bn)
         norm = GroupedBatchNorm if grouped_bn else BatchNorm
-        bn = dict(momentum=bn_momentum, eps=bn_epsilon)
+        bn = dict(momentum=bn_momentum, eps=bn_epsilon,
+                  cross_replica=bn_cross_replica_axis is not None)
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = norm(64, **bn)
         self.stage_names = []
@@ -174,6 +180,76 @@ class ResNet(nn.Module):
         if self.fc is not None:
             stages["logits"] = self.fc(stages["pool"])
         return stages
+
+
+def _stack(tensors):
+    return tensors[0] if len(tensors) == 1 else torch.cat(tensors)
+
+
+def _stacked_conv(convs, x, dtype):
+    """The E convs (same shape) of E stacked trunks as one grouped conv."""
+    c = convs[0]
+    w = _stack([m.weight.to(dtype) for m in convs]).contiguous(
+        memory_format=torch.channels_last)
+    return F.conv2d(x.to(dtype), w, None, c.stride, c.padding, 1, c.groups * len(convs))
+
+
+def _stacked_bn(bns, x, fold):
+    """The E norm layers of E stacked trunks as one call; in train mode each
+    layer folds its own channels' statistics unless ``fold`` is off."""
+    b0 = bns[0]
+    weight = _stack([b.weight for b in bns])
+    bias = _stack([b.bias for b in bns])
+    if not b0.training:
+        return torch.ops.aten.native_batch_norm(
+            x, weight, bias, _stack([b.running_mean for b in bns]),
+            _stack([b.running_var for b in bns]), False, 0.0, b0.eps)[0]
+    y, mean, var = batch_norm_train(x, weight, bias, b0.eps, b0.cross_replica)
+    if fold:
+        c = b0.weight.shape[0]
+        for i, b in enumerate(bns):
+            b.fold(mean[i * c:(i + 1) * c], var[i * c:(i + 1) * c])
+    return y
+
+
+def _stacked_block(blocks, x, dtype, fold):
+    b0 = blocks[0]
+
+    def conv_bn(conv, bn, inp):
+        y = _stacked_conv([getattr(b, conv) for b in blocks], inp, dtype)
+        return _stacked_bn([getattr(b, bn) for b in blocks], y, fold)
+
+    out = F.relu(conv_bn("conv1", "bn1", x))
+    if isinstance(b0, Bottleneck):
+        out = F.relu(conv_bn("conv2", "bn2", out))
+        out = conv_bn("conv3", "bn3", out)
+    else:
+        out = conv_bn("conv2", "bn2", out)
+    identity = conv_bn("downsample_conv", "downsample_bn", x) if b0.downsample else x
+    return F.relu(out + identity)
+
+
+def stacked_forward(trunks, x, fold=True):
+    """E ResNet trunks of one architecture (plain BatchNorm) as one pass.
+
+    ``x``: NHWC ``[B, H, W, 3E]``, trunk ``e``'s view in channels
+    ``3e..3e+2``. Returns the stage dict of ``ResNet.forward`` without
+    ``pool``, each map ``[B, h, w, E*C]`` with trunk ``e``'s channels
+    ``e*C..``. Train or eval mode is the trunks'; ``fold=False`` leaves the
+    running statistics as they are (a forward whose statistics are
+    discarded)."""
+    r0 = trunks[0]
+    dtype = r0.dtype
+    x = x.to(dtype).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    x = _stacked_conv([t.conv1 for t in trunks], x, dtype)
+    x = F.relu(_stacked_bn([t.bn1 for t in trunks], x, fold))
+    x = F.max_pool2d(x, 3, 2, 1)
+    stages = {"stem": x.permute(0, 2, 3, 1)}
+    for i, names in enumerate(r0.stage_names):
+        for name in names:
+            x = _stacked_block([getattr(t, name) for t in trunks], x, dtype, fold)
+        stages[f"c{i + 2}"] = x.permute(0, 2, 3, 1)
+    return stages
 
 
 _RESNET_DEFS = {

@@ -7,10 +7,11 @@ the module's parameters from ``params`` and its BatchNorm buffers from
 can compare parameters and statistics after an update.
 
 Name map, built from the module itself: a module path keeps its segments,
-except that inside a VGG trunk ``features.N`` is flax's ``convN`` (the
-torchvision index; in a nested model such as Peer-Learning's ``base_model``/``base_model2``
-the rewrite applies inside each of its VGG trunks);
-ResNet's ``conv1``/``layer1_0``/... are flax's names as they are. Leaves:
+except that inside a VGG trunk ``features.N`` is flax's ``convN``, or
+``bnN`` where it is a BatchNorm (the torchvision index; in a nested model
+such as Peer-Learning's ``base_model``/``base_model2`` the rewrite applies
+inside each of its VGG trunks); a VGG classifier's ``fc0``/``fc3``/``fc6``
+and ResNet's ``conv1``/``layer1_0``/... are flax's names as they are. Leaves:
 the ``weight`` of an ``nn.Conv2d`` or ``nn.Linear`` is ``kernel``; a
 BatchNorm ``weight`` is ``scale``, its ``running_mean``/``running_var`` are
 ``batch_stats/.../{mean,var}``; ``bias`` stays. A raw ``nn.Parameter`` of a
@@ -51,8 +52,9 @@ def _flax_key(module, name):
     path, m, i = [], module, 0
     while i < len(mods):
         if isinstance(m, VGG) and mods[i] == "features":
-            path.append(f"conv{mods[i + 1]}")
             m = m.features[mods[i + 1]]
+            kind = "bn" if isinstance(m, BatchNorm) else "conv"
+            path.append(f"{kind}{mods[i + 1]}")
             i += 2
         else:
             path.append(mods[i])

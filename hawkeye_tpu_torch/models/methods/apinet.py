@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from ...registry import BACKBONE, MODEL
+from ...utils.tensors import dropout
 
 
 def mine_pairs(embeddings, labels, valid=None):
@@ -44,15 +45,6 @@ def mine_pairs(embeddings, labels, valid=None):
     inter = torch.where(~same & ok[None, :], dist, inf).argmin(dim=1)
     return intra, inter
 
-
-def dropout(x, rate, generator):
-    """flax's ``nn.Dropout`` in train mode: keep with probability
-    ``1 - rate`` (a uniform draw below it) and scale by ``1 / (1 - rate)``;
-    the mask comes from ``generator``."""
-    if rate == 0.0:
-        return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
-    return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
 class APINet(nn.Module):

@@ -3,7 +3,8 @@
 Counterpart of ``hawkeye_tpu/models/methods/bcnn.py`` (reference
 ``model/methods/BCNN.py``): the post-pool5 VGG map -> bilinear pooling
 (C x C Gram / HW) -> signed sqrt + L2 normalisation -> linear classifier, in
-float32 on top of a ``dtype`` trunk. Two-stage training: stage 1 stops
+float32 on top of a ``dtype`` trunk (the plain head in float64 where the
+classifier is: a model cast to float64 is its own reference). Two-stage training: stage 1 stops
 gradients at the features (the JAX model's ``stop_gradient``; here the
 backbone runs with autograd off), stage 2 fine-tunes everything from the
 stage-1 best model. ``fused_pooling`` selects the Gram kernel
@@ -43,8 +44,9 @@ class BCNN(nn.Module):
             feats = self.backbone(x)["pooled_features"]
         if self.fused_pooling:
             v = bilinear_pool_fused(feats)
-        else:
-            v = bilinear_pool(feats)  # [B, C*C], f32, sqrt + L2 normalised
+        else:  # [B, C*C] in the head's dtype (at least f32), sqrt + L2 normalised
+            head = torch.promote_types(self.fc.weight.dtype, torch.float32)
+            v = bilinear_pool(feats.to(head))
         return {"logits": self.fc(v), "features": v}
 
 

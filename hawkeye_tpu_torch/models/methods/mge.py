@@ -16,8 +16,22 @@ classifier, so its weights are the ReLU'd classifier row of the target
 thresholds that CAM and crops the enclosing box with fixed-shape index
 arithmetic and one batched resize, with no host round trip.
 
-The JAX package's ``fused_experts`` (one stacked pass of the four
-backbones, measured slower there) is not ported: asking for it raises.
+``fused_experts`` (the JAX package's, measured 20% slower on its TPU and
+off by default there and here): the expert chain is data-dependent (each
+crop comes from the previous expert's CAM), so phase A runs expert 0 on the
+image and expert 1 on its crop forward only, without gradients, in train
+mode where training, with the running statistics left as they were, only to
+find the two crops (the sequential path detaches them too). Phase B is one
+pass of the four backbones over ``[x, crop1, crop2, x]``
+(``backbones.resnet.stacked_forward``: the views stacked along the
+channels, every conv grouped four ways over the four backbones' weights
+concatenated along the output channels, every BatchNorm one call over the
+four backbones' channels, so each has its own statistics), forward and
+backward, which folds the statistics. It gives the sequential path's
+logits, gradients and statistics; the parameters are the sequential
+path's (the JAX package's ``stack_expert_variables`` stacks its variables
+into another tree; here the weights stay in each expert's modules and are
+stacked at each call), so a checkpoint serves both paths.
 The heads compute in their parameters' dtype (float32; float64 in a model
 cast to float64), the backbones in ``dtype``. Submodules carry the flax
 names (``expert_0``..``expert_2`` with ``backbone`` and ``head``,
@@ -32,7 +46,7 @@ from torch import nn
 
 from ...ops.resample import crop_resize_bilinear, resize_bilinear
 from ...registry import BACKBONE, MODEL
-from ..backbones.resnet import _conv
+from ..backbones.resnet import ResNet, _conv, stacked_forward
 
 
 def l2n(x):
@@ -104,7 +118,10 @@ class _Expert(nn.Module):
         self.head = _ExpertHead(c5 // 2, c5, num_classes)
 
     def forward(self, x):
-        stages = self.backbone(x)
+        return self.heads(self.backbone(x))
+
+    def heads(self, stages):
+        """(logits, logits_max, logits_cat, c5) from the backbone's stages."""
         pool = stages["c5"].mean(dim=(1, 2)).to(self.head.classifier.weight.dtype)
         return (*self.head(pool, stages["c4"]), stages["c5"])
 
@@ -113,10 +130,7 @@ class MGECNN(nn.Module):
     def __init__(self, num_classes, image_size=448, box_thred=0.2,
                  backbone_name="resnet50", dtype=torch.bfloat16, fused_experts=False):
         super().__init__()
-        if fused_experts:
-            raise NotImplementedError(
-                "model.fused_experts: the stacked four-backbone pass of the JAX "
-                "package is not ported; leave it false for the sequential path")
+        self.fused_experts = bool(fused_experts)
         self.num_classes = int(num_classes)
         self.image_size = int(image_size)
         self.box_thred = float(box_thred)
@@ -125,13 +139,31 @@ class MGECNN(nn.Module):
         self.gate_backbone = BACKBONE.get(backbone_name)(num_classes=0, dtype=dtype)
         self.cls_gate_0 = nn.Linear(self.gate_backbone.out_channels, 512)
         self.cls_gate_1 = nn.Linear(512, 3)
+        if self.fused_experts and not isinstance(self.gate_backbone, ResNet):
+            raise ValueError("fused_experts stacks ResNet backbones, not "
+                             f"{backbone_name!r}")
 
     def _cam_crop(self, view, c5, weights):
         return cam_bbox(view, c5, weights, self.box_thred, self.image_size)[0]
 
+    def _cam_weights(self, expert, logits, labels):
+        """The ReLU'd classifier rows of the CAM's classes: the labels', else
+        the expert's argmax."""
+        y = labels if labels is not None else logits.detach().argmax(-1)
+        return F.relu(expert.head.classifier.weight.detach()[y])
+
+    def _gate(self, pool, cats, all_logits):
+        pr_gate = torch.softmax(self.cls_gate_1(self.cls_gate_0(pool)), dim=-1)
+        gate_logits = sum(cats[i] * pr_gate[:, i:i + 1] for i in range(3))
+        all_logits.append(gate_logits)
+        return {"logits": gate_logits, "all_logits": torch.stack(all_logits),
+                "pr_gate": pr_gate}
+
     def forward(self, x, labels=None):
         """x NHWC; ``labels`` (train) pick the CAM's class, else each
         expert's argmax does."""
+        if self.fused_experts:
+            return self._fused(x, labels)
         all_logits, cats, view = [], [], x
         for i in range(3):
             expert = getattr(self, f"expert_{i}")
@@ -139,17 +171,37 @@ class MGECNN(nn.Module):
             all_logits += [logits, logits_max, logits_cat]
             cats.append(logits_cat.detach())
             if i < 2:
-                y = labels if labels is not None else logits.detach().argmax(-1)
-                weights = F.relu(expert.head.classifier.weight.detach()[y])
-                view = self._cam_crop(view, c5, weights)
+                view = self._cam_crop(view, c5, self._cam_weights(expert, logits, labels))
 
         head = self.cls_gate_0.weight.dtype
         pool = self.gate_backbone(x)["c5"].mean(dim=(1, 2)).to(head)
-        pr_gate = torch.softmax(self.cls_gate_1(self.cls_gate_0(pool)), dim=-1)
-        gate_logits = sum(cats[i] * pr_gate[:, i:i + 1] for i in range(3))
-        all_logits.append(gate_logits)
-        return {"logits": gate_logits, "all_logits": torch.stack(all_logits),
-                "pr_gate": pr_gate}
+        return self._gate(pool, cats, all_logits)
+
+    def _fused(self, x, labels):
+        """Phase A: the two crops from forward-only passes of experts 0 and
+        1 that fold no statistics; phase B: the four backbones as one."""
+        experts = [getattr(self, f"expert_{i}") for i in range(3)]
+        views = [x]
+        with torch.no_grad():
+            for expert in experts[:2]:
+                c5 = stacked_forward([expert.backbone], views[-1], fold=False)["c5"]
+                cls = expert.head.classifier
+                logits = (None if labels is not None  # only the CAM's class is read
+                          else cls(c5.mean(dim=(1, 2)).to(cls.weight.dtype)))
+                views.append(self._cam_crop(views[-1], c5,
+                                            self._cam_weights(expert, logits, labels)))
+        views.append(x)  # the gate backbone sees the image
+        trunks = [e.backbone for e in experts] + [self.gate_backbone]
+        stacked = stacked_forward(trunks, torch.cat(views, dim=-1))
+        split = {k: stacked[k].chunk(4, dim=-1) for k in ("c4", "c5")}
+        all_logits, cats = [], []
+        for i, expert in enumerate(experts):
+            logits, logits_max, logits_cat, _ = expert.heads(
+                {k: split[k][i] for k in split})
+            all_logits += [logits, logits_max, logits_cat]
+            cats.append(logits_cat.detach())
+        pool = split["c5"][3].mean(dim=(1, 2)).to(self.cls_gate_0.weight.dtype)
+        return self._gate(pool, cats, all_logits)
 
 
 @MODEL.register(name="MGE_CNN")

@@ -40,8 +40,8 @@ from torch import nn
 from ...ops.nms import anchor_adjacency, nms_fixed_anchors_batch
 from ...ops.resample import crop_resize_multibox
 from ...registry import BACKBONE, MODEL
+from ...utils.tensors import dropout
 from ..backbones.resnet import _conv
-from .apinet import dropout
 
 # anchor pyramid: (stride, base size, scales, aspect ratios) per level, the
 # published NTS-Net configuration (anchors.py:3-7)

@@ -11,10 +11,12 @@ come as local files (the reference's torch.hub URL loading,
   dict under this package's names. The port's ResNet carries flax's
   submodule names (``layer1.0`` is ``layer1_0``, ``downsample.0``/``.1`` are
   ``downsample_conv``/``downsample_bn``), its VGG torchvision's
-  ``features.N``; the layouts (OIHW, BatchNorm ``weight``/``bias``/
-  ``running_mean``/``running_var``) are torchvision's already. Keys the JAX
-  converters do not read (``num_batches_tracked``, VGG's classifier) are
-  dropped here too.
+  ``features.N`` (convs and, in the ``_bn`` variants, BatchNorms) and the
+  classifier's ``fc0``/``fc3``/``fc6`` (``classifier.0``'s input axis
+  permuted to the NHWC flatten); the layouts (OIHW, BatchNorm
+  ``weight``/``bias``/``running_mean``/``running_var``) are torchvision's
+  already. Keys the JAX converters do not read (``num_batches_tracked``)
+  are dropped here too.
 - ``load_pretrained_backbone``: the JAX package's semantics. A missing file
   logs ``training from scratch`` and keeps the init; a ``.pth``/``.pt``/
   ``.tar`` is converted and loaded into the model's ``backbone`` by
@@ -64,10 +66,25 @@ def convert_torchvision_resnet(sd):
 
 
 def convert_torchvision_vgg(sd):
-    """A torchvision vgg state dict's ``features`` (the port's VGG has the
-    same names; its ``_bn`` variants and classifier are not ported)."""
+    """A torchvision vgg or vgg_bn state dict under the port's VGG names:
+    ``features.N`` (convs and BatchNorms) as they are, ``classifier.0/3/6``
+    as ``fc0/fc3/fc6``. ``classifier.0`` reads the flattened 7x7 map, which
+    torchvision flattens in NCHW order (``c*49 + h*7 + w``) and the port, as
+    the JAX model, in NHWC order (``h*7*C + w*C + c``): its input axis is
+    permuted to that order."""
     feat = re.compile(r"^features\.\d+\.(weight|bias|running_mean|running_var)$")
-    return {k: v for k, v in sd.items() if feat.match(k)}
+    out = {k: v for k, v in sd.items() if feat.match(k)}
+    for k, v in sd.items():
+        m = re.match(r"^classifier\.(\d+)\.(weight|bias)$", k)
+        if not m:
+            continue
+        idx, leaf = m.groups()
+        if idx == "0" and leaf == "weight" and v.shape[1] % 49 == 0:
+            c = v.shape[1] // 49
+            v = v.reshape(v.shape[0], c, 7, 7).permute(0, 2, 3, 1).reshape(
+                v.shape[0], 49 * c)
+        out[f"fc{idx}.{leaf}"] = v
+    return out
 
 
 def convert_bbn_inat_resnet(sd):

@@ -24,14 +24,16 @@ def l2_rows(v):
 
 
 def gram(x):
-    """[B, HW, C] -> [B, C, C] = X^T X / HW, accumulated in float32."""
-    xf = x.float()
+    """[B, HW, C] -> [B, C, C] = X^T X / HW, accumulated in float32 (float64
+    for float64 features: a float64 model is its own reference)."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
     return torch.bmm(xf.transpose(1, 2), xf) / float(x.shape[1])
 
 
 def bilinear_pool(features, *, signed_sqrt=True, l2_normalize=True,
                   eps=1e-5):
-    """[B, H, W, C] -> [B, C*C] bilinear-pooled descriptor, float32."""
+    """[B, H, W, C] -> [B, C*C] bilinear-pooled descriptor, float32 (float64
+    for float64 features)."""
     b, h, w, c = features.shape
     v = gram(features.reshape(b, h * w, c)).reshape(b, c * c)
     if signed_sqrt:

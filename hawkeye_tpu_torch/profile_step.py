@@ -1,14 +1,16 @@
 """Where a train step spends its device time.
 
     python -m hawkeye_tpu_torch.profile_step
-        [--model bcnn|resnet50|cbcnn|mpn|peer_learning|pair_confusion|
+        [--model bcnn|bcnn_bn|resnet50|cbcnn|mpn|peer_learning|pair_confusion|
                  osme|apinet|cin|crossx|interp_parts|prototree|dcl|
-                 ntsnet|apcnn|s3n|mge]
+                 ntsnet|apcnn|s3n|mge|mge_fused]
         [--batch 8,128] [--steps 5]
 
 ``--model bcnn`` (the default) builds the port's Trainer from
 ``configs/BCNN_S2.yaml`` (VGG-16, 448x448, 200 classes,
-``fused_pooling: true``) and feeds it device-resident random float images.
+``fused_pooling: true``) and feeds it device-resident random float images;
+``--model bcnn_bn`` the same on ``model.backbone: vgg16_bn`` (VGG-16 with
+BatchNorm after each conv).
 ``--model resnet50`` builds it from ``configs/Baseline.yaml`` (Baseline
 ResNet-50, 448x448, 200 classes) with ``bench.py``'s train step: SGD (lr
 0.01, momentum 0.9, weight decay 1e-4) and the device pipeline on
@@ -38,7 +40,9 @@ rates count the B images, not the B + B*M backbone rows), ``apcnn``
 from ``configs/APCNN.yaml`` (ResNet-50, 448x448), ``s3n`` from
 ``configs/S3N.yaml`` (ResNet-50, 448x448, at epoch 20: the phase-1 step of
 80 of its 100 epochs) and ``mge`` from ``configs/MGE_CNN.yaml`` (four
-ResNet-50s, 224x224).
+ResNet-50s, 224x224), ``mge_fused`` the same with ``model.fused_experts:
+true`` (two forward-only passes for the crops, then the four backbones as
+one grouped pass).
 The P x K recipes (OSME, API-Net, CIN) take ``--batch`` as P x K with the
 recipe's K (``dataset.n_samples``), and their labels come as P random
 classes K times each. Random weights, synthetic data, on the CUDA device.
@@ -97,7 +101,8 @@ _AUGMENT = "hk::augment"  # the profiler range around the device augmentation
 _RANGES = {"ntsnet": {"_nms": "nms", "_crop": "roi_crop"},
            "apcnn": {"_rois": "nms", "_roi_crop": "roi_crop"},
            "s3n": {"_saliency_grids": "saliency", "_warp": "warp"},
-           "mge": {"_cam_crop": "cam_crop"}}
+           "mge": {"_cam_crop": "cam_crop"},
+           "mge_fused": {"_cam_crop": "cam_crop"}}
 # model -> (category, host ops whose kernels it takes): the high-order heads
 _HEADS = {"cbcnn": ("compact_bilinear", ("aten::bmm", "aten::mm")),
           "mpn": ("covariance_newton_schulz", ("aten::bmm",))}
@@ -119,7 +124,8 @@ _RECIPES = {"cbcnn": ("CBCNN_S2.yaml", "CBCNN", "CBCNNTrainer", 448),
             "ntsnet": ("NTSNet.yaml", "NTSNet", "NTSNetTrainer", 224),
             "apcnn": ("APCNN.yaml", "APCNN", "APCNNTrainer", 448),
             "s3n": ("S3N.yaml", "S3N", "S3NTrainer", 448),
-            "mge": ("MGE_CNN.yaml", "MGE_CNN", "MGETrainer", 224)}
+            "mge": ("MGE_CNN.yaml", "MGE_CNN", "MGETrainer", 224),
+            "mge_fused": ("MGE_CNN.yaml", "MGE_CNN", "MGETrainer", 224)}
 
 
 def recipe_n_samples(model):
@@ -172,10 +178,12 @@ def bench_trainer(model, run_dir, batch, device=None):
     """The port's Trainer for the benchmark step of ``model`` (on CUDA
     unless ``device`` says otherwise)."""
     trainer_cls = Trainer
-    if model == "bcnn":
+    if model in ("bcnn", "bcnn_bn"):
         cfg = load_yaml_config(os.path.join(ROOT, "configs", "BCNN_S2.yaml")).to_dict()
         cfg["dataset"] = {"transformer": cfg["dataset"]["transformer"]}
         cfg["model"].update(load=None, fused_pooling=True)
+        if model == "bcnn_bn":
+            cfg["model"]["backbone"] = "vgg16_bn"
     elif model in _RECIPES:
         recipe, module, cls, _ = _RECIPES[model]
         trainer_cls = getattr(importlib.import_module(
@@ -188,6 +196,8 @@ def bench_trainer(model, run_dir, batch, device=None):
         cfg["model"].update(load=None)
         if model == "peer_learning":
             cfg["model"]["base_model"].update(fused_pooling=True)
+        if model == "mge_fused":
+            cfg["model"]["fused_experts"] = True
     else:
         cfg = load_yaml_config(os.path.join(ROOT, "configs", "Baseline.yaml")).to_dict()
         cfg["dataset"] = {"pipeline": "device",
@@ -347,7 +357,7 @@ def profile_batch(model, batch, steps, run_dir):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--model", default="bcnn",
-                        choices=("bcnn", "resnet50", *_RECIPES))
+                        choices=("bcnn", "bcnn_bn", "resnet50", *_RECIPES))
     parser.add_argument("--batch", default="8,128")
     parser.add_argument("--steps", type=int, default=5)
     args = parser.parse_args(argv)

@@ -24,9 +24,8 @@ import torch
 
 from hawkeye_tpu.data import ta_wide_device as jax_ta
 from hawkeye_tpu.data import transforms_device as jax_td
-from hawkeye_tpu.data import transforms_host as jax_th
+from hawkeye_tpu.data.dataset import FGDataset as JaxFGDataset
 from hawkeye_tpu.data.dataset import SyntheticDataset as JaxSynthetic
-from hawkeye_tpu.data.dataset import load_rgb
 from hawkeye_tpu.ops import resample as jax_rs
 from hawkeye_tpu_torch.data import FGDataset, SyntheticDataset
 from hawkeye_tpu_torch.data import ta_wide_device as ta
@@ -303,13 +302,14 @@ def test_decode_size_items_match_jax():
         assert a["img"].dtype == np.uint8 and a["img"].shape == (40, 40, 3)
         np.testing.assert_array_equal(a["img"], b["img"])
         assert a["label"] == b["label"]
+    # the fixtures are JPEGs: the JAX FGDataset decodes them natively
+    # (libjpeg's DCT scaling and one fused resize), and so does the port's
     root = os.path.join(HERE, "fixtures", "images")
-    ds = FGDataset(root, os.path.join(HERE, "fixtures", "meta", "val.txt"),
-                   decode_size=48)
+    meta = os.path.join(HERE, "fixtures", "meta", "val.txt")
+    ds = FGDataset(root, meta, decode_size=48)
+    ref = JaxFGDataset(root, meta, decode_size=48)
     for i in (0, len(ds) - 1):
         item = ds[i]
-        img = load_rgb(os.path.join(root, ds.paths[i]))
-        want = np.asarray(jax_th.center_crop(jax_th.resize_shorter(img, 48), 48),
-                          np.uint8)
+        assert ds.paths[i].endswith(".jpg")
         assert item["img"].shape == (48, 48, 3)
-        np.testing.assert_array_equal(item["img"], want)
+        np.testing.assert_array_equal(item["img"], ref[i]["img"])

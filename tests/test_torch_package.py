@@ -258,3 +258,41 @@ def test_example_entry_points_default_to_cuda_and_raise_without_it(
                        trainer_cls=trainer_cls)
     assert not os.listdir(tmp_path)
 
+
+
+# JAX files whose port is not a file of the same path: the Pallas kernels
+# are CUDA sources
+PORTED_AS = {"ops/pallas_pool.py": "csrc/pool.cu",
+             "ops/pallas_bilinear.py": "csrc/gram.cu"}
+
+
+def test_every_jax_package_file_has_its_port():
+    """Each file of hawkeye_tpu/ (Python and the native decoder's C++), of
+    Examples/ and the train/test entry points maps to its port file: the
+    same path under hawkeye_tpu_torch/ (examples/ for Examples/), or the
+    CUDA source of a Pallas kernel. The native decoder's source is the
+    port's own copy, and no module raises NotImplementedError but S3N on a
+    VGG trunk (the JAX S3N reads a ``c5`` that its VGG does not give)."""
+    jax_root = os.path.join(ROOT, "hawkeye_tpu")
+    port_root = os.path.join(ROOT, "hawkeye_tpu_torch")
+    pairs = []
+    for d, _, names in os.walk(jax_root):
+        for n in names:
+            if n.endswith((".py", ".cpp")):
+                rel = os.path.relpath(os.path.join(d, n), jax_root).replace(os.sep, "/")
+                pairs.append((rel, PORTED_AS.get(rel, rel)))
+    pairs += [(f"../Examples/{n}", f"examples/{n}")
+              for n in os.listdir(os.path.join(ROOT, "Examples")) if n.endswith(".py")]
+    pairs += [("../train.py", "train.py"), ("../test.py", "test.py")]
+    assert len(pairs) > 90
+    missing = [(j, p) for j, p in pairs if not os.path.exists(os.path.join(port_root, p))]
+    assert not missing, missing
+    with open(os.path.join(port_root, "data", "native", "decoder.cpp")) as f:
+        src = f.read()
+    assert "extern \"C\"" in src and "hawkeye_tpu/" not in src
+    raising = []
+    for path in _port_files():
+        with open(path) as f:
+            if "NotImplementedError" in f.read():
+                raising.append(os.path.relpath(path, ROOT))
+    assert raising == [os.path.join("hawkeye_tpu_torch", "models", "methods", "s3n.py")]

@@ -57,8 +57,8 @@ labels is held in test_torch_examples_s3n_mge.py, through both packages'
 Example trainers.
 
 The loss alone: random [10, B, C] heads with and without a per-sample
-weight, values rtol 1e-5, gradients rtol 1e-4 / atol 1e-6. The JAX
-package's ``fused_experts`` is not ported: asking for it raises.
+weight, values rtol 1e-5, gradients rtol 1e-4 / atol 1e-6.
+``fused_experts`` builds the fused path (test_torch_mge_fused.py holds it).
 """
 
 import functools
@@ -536,9 +536,15 @@ def test_mge_eval_forward_matches_jax(monkeypatch):
 
 
 def test_fused_experts_is_not_ported():
-    with pytest.raises(NotImplementedError, match="fused_experts"):
-        mge.build_mge(ConfigNode({"name": "MGE_CNN", "num_classes": 5,
-                                  "fused_experts": True}).freeze())
+    """Named before the fused path was ported: ``model.fused_experts`` now
+    builds it (held against the sequential path and the JAX package's fused
+    path in test_torch_mge_fused.py), on ResNet backbones alone."""
+    model = mge.build_mge(ConfigNode({"name": "MGE_CNN", "num_classes": 5,
+                                      "backbone": "resnet18",
+                                      "fused_experts": True}).freeze())
+    assert model.fused_experts
+    with pytest.raises(ValueError, match="fused_experts"):
+        mge.MGECNN(5, backbone_name="vgg11", fused_experts=True)
 
 
 @pytest.mark.parametrize("weighted", [False, True], ids=["unweighted", "weighted"])

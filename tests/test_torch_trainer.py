@@ -9,6 +9,7 @@ atol of 1e-3 of the tensor's largest update (float32 summation order) plus
 four float32 ulps of the parameter (the rounding of new and old)."""
 
 import torch_threads  # noqa: F401  (PyTorch's thread count: see the module)
+import json
 import os
 
 import jax
@@ -174,3 +175,32 @@ def test_validation_weighting_matches_jax_trainer(tmp_path):
     assert got["acc"] == want["acc"]
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def test_experiment_profile_traces_steps_3_to_8(tmp_path):
+    """``experiment.profile`` (the JAX Trainer's ``jax.profiler`` trace,
+    started before step 3 of epoch 0 and stopped before step 8) writes a
+    ``torch.profiler`` Chrome trace to ``<log_root>/profile`` and says so in
+    the log; of ten steps, each in a named range, the trace holds 3 to 7."""
+    path = _tiny_recipe_path("BCNN_S2.yaml", tmp_path, {
+        "experiment": {"profile": True},
+        "dataset": {"length": 40, "transformer": {"image_size": 32, "resize_size": 36}},
+        "model": {"load": None}, "train": {"epoch": 1, "val_first": False}})
+    pt = PortF32Trainer(setup_config(argv=["--config", path]), device="cpu")
+    steps = []
+
+    def start(batch):
+        steps.append(torch.profiler.record_function(f"step{len(steps)}"))
+        steps[-1].__enter__()
+
+    pt.on_start_batch = start
+    pt.on_end_batch = lambda metrics: steps[-1].__exit__(None, None, None)
+    pt.train()
+    trace = os.path.join(pt.log_root, "profile", "trace.json")
+    with open(trace) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert len(steps) == 10
+    assert {f"step{i}" for i in range(3, 8)} <= names
+    assert not names & {"step0", "step1", "step2", "step9"}
+    with open(os.path.join(pt.log_root, "report.log")) as f:
+        assert f"profiler trace written to {os.path.dirname(trace)}" in f.read()
