@@ -4,7 +4,9 @@ Replaces the reference's ``torch.utils.data.DataLoader(num_workers=N)``
 process pool (``train.py:200-209``) with a thread pool: PIL decode and
 resize release the GIL in C, so threads give parallel decode without
 pickling/fork overhead, and the loader double-buffers ``prefetch_batches``
-batches ahead so the accelerator never waits on the host.
+batches ahead so the accelerator never waits on the host. The main
+thread's wait for a batch's items and its collate are the spans
+``data.wait`` and ``data.collate`` (``utils/trace.py``).
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ import collections
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+
+from ..utils import trace
 
 
 def default_collate(items):
@@ -52,7 +56,9 @@ class DataLoader:
     def __iter__(self):
         if self._pool is None:
             for indices in self.batch_sampler:
-                yield self.collate_fn([self.dataset[i] for i in indices])
+                with trace.span("data.wait"):
+                    items = [self.dataset[i] for i in indices]
+                yield self._collate(items)
             return
         # pipeline: keep `prefetch_batches` batches of per-item futures in
         # flight (per-item, not per-batch, so a batch can't occupy a worker
@@ -73,7 +79,13 @@ class DataLoader:
                 pending.append(submit(next(it)))
             except StopIteration:
                 pass
-            yield self.collate_fn([f.result() for f in futs])
+            with trace.span("data.wait"):
+                items = [f.result() for f in futs]
+            yield self._collate(items)
+
+    def _collate(self, items):
+        with trace.span("data.collate"):
+            return self.collate_fn(items)
 
     def __len__(self):
         return len(self.batch_sampler)

@@ -47,7 +47,19 @@ checkpoints.
 ``experiment.profile``: ``torch.profiler`` traces steps 3-8 of epoch 0
 (CPU and, on the card, CUDA activity) into ``<log_root>/profile`` as a
 Chrome trace, and the log says so, as the JAX Trainer's
-``jax.profiler`` trace does.
+``jax.profiler`` trace does. While a profiler records, the port's own spans
+(``utils/trace.py``) are ranges named ``hk::<span>`` in that trace:
+``data.wait`` and ``data.collate`` (the loader's main thread), ``pin``
+(``prepare_batch``), ``augment``, ``forward`` and ``backward`` (the train
+step), ``batch_norm`` (each train-mode normalisation; the summary reads
+its backward, ``batch_norm.backward``, from the profiler's records of the
+autograd nodes), ``allreduce.bn_stats`` and ``allreduce.grads`` (across
+processes). The Trainer resets the tracer when its profiler starts and,
+after writing the trace, logs one line of the tracer's summary: each
+span's calls, host ms and device ms a traced step (device ms: the device
+time of the work launched while the span was open, read from the
+profiler's events), and the counters a step (``collective.calls``,
+``collective.bytes``).
 
 ``dataset.pipeline: device`` (the JAX Trainer's device pipeline): the host
 only decodes to uint8 ``[R, R, 3]`` (``R = transformer.resize_size`` or
@@ -110,6 +122,7 @@ from ..utils import (
     get_logger,
     resolve_device,
     set_random_seed,
+    trace,
 )
 from . import checkpoint as ckpt
 from .optim import build_optimizer, build_scheduler, set_learning_rate
@@ -416,7 +429,8 @@ class Trainer:
         augmentation of ``img``. Methods with their own batch law override
         this to rebuild the whole batch on the device."""
         batch = dict(batch)
-        batch["img"] = self.device_augment(generator, batch["img"])
+        with trace.span("augment"):
+            batch["img"] = self.device_augment(generator, batch["img"])
         return batch
 
     def device_prepare_eval(self, batch):
@@ -438,20 +452,25 @@ class Trainer:
 
     def prepare_batch(self, batch, train):
         """Host numpy batch -> dict of tensors on the device (from pinned
-        memory on CUDA, so the copy does not hold up the host)."""
+        memory on CUDA, so the copy does not hold up the host); the span
+        ``pin``."""
         out = {}
-        for k, v in batch.items():
-            if isinstance(v, np.ndarray) and v.dtype.kind in "fiub":
-                t = torch.from_numpy(np.ascontiguousarray(v))
-                if self.device.type == "cuda":
-                    t = t.pin_memory()
-                out[k] = t.to(self.device, non_blocking=True)
-            else:
-                out[k] = v
+        with trace.span("pin"):
+            for k, v in batch.items():
+                if isinstance(v, np.ndarray) and v.dtype.kind in "fiub":
+                    t = torch.from_numpy(np.ascontiguousarray(v))
+                    if self.device.type == "cuda":
+                        t = t.pin_memory()
+                    out[k] = t.to(self.device, non_blocking=True)
+                else:
+                    out[k] = v
         return out
 
     def train_step_call(self, batch, lr):
-        """One optimizer step on a prepared batch; returns device metrics."""
+        """One optimizer step on a prepared batch; returns device metrics.
+        One traced step of ``utils/trace.py``, with the spans ``forward`` and
+        ``backward``."""
+        trace.step()
         if self.pipeline == "device":
             # one stream of draws per step, as JAX folds the step into its key
             self.aug_generator.manual_seed(self.seed * 2**32 + self.step)
@@ -459,8 +478,10 @@ class Trainer:
         self.model.train()
         set_learning_rate(self.optimizer, lr)
         self.optimizer.zero_grad(set_to_none=False)
-        loss, outputs = self.forward_train(batch)
-        loss.backward()
+        with trace.span("forward"):
+            loss, outputs = self.forward_train(batch)
+        with trace.span("backward"):
+            loss.backward()
         average_gradients(self.model.parameters())  # no-op in one process
         self.transform_grads(batch)
         for group in self.optimizer.param_groups:
@@ -606,6 +627,7 @@ class Trainer:
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         profiler = torch.profiler.profile(activities=activities)
         profiler.start()
+        trace.reset()
         return profiler
 
     def _stop_profile(self, profiler):
@@ -616,6 +638,7 @@ class Trainer:
         os.makedirs(profile_dir, exist_ok=True)
         profiler.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
         self.logger.info(f"profiler trace written to {profile_dir}")
+        self.logger.info(trace.describe(trace.summary(profiler.events())))
 
     def batch_lr(self, epoch_lr):
         """Per-step LR hook (per-batch cosine recipes override this)."""

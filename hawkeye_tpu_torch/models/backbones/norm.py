@@ -46,26 +46,25 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.distributed as dist
 from torch import nn
 
-from ...parallel.mesh import world
+from ...parallel.mesh import all_reduce_sum, world
+from ...utils import trace
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """A sum over the processes whose gradient is the sum of theirs."""
+    """A sum over the processes whose gradient is the sum of theirs (the
+    span ``allreduce.bn_stats`` each way)."""
 
     @staticmethod
     def forward(ctx, t):
-        t = t.clone()
-        dist.all_reduce(t)
-        return t
+        with trace.span("allreduce.bn_stats"):
+            return all_reduce_sum(t.clone())
 
     @staticmethod
     def backward(ctx, g):
-        g = g.clone()
-        dist.all_reduce(g)
-        return g
+        with trace.span("allreduce.bn_stats"):
+            return all_reduce_sum(g.clone())
 
 
 def global_batch_stats(x, eps):
@@ -87,16 +86,20 @@ def batch_norm_train(x, weight, bias, eps, cross_replica=False):
     """Train-mode normalisation of NCHW ``x`` with its batch's statistics
     (the global batch's with ``cross_replica`` in a world of more than one
     process): (y in ``x``'s dtype, batch mean, biased variance), the
-    statistics detached and at least float32."""
-    if cross_replica and world()[1] > 1:
-        mean, var, invstd = global_batch_stats(x, eps)
-        shape = (1, -1) + (1,) * (x.dim() - 2)
-        scale = (invstd * weight).view(shape)
-        y = (x.to(mean.dtype) - mean.view(shape)) * scale + bias.view(shape)
-        return y.to(x.dtype), mean.detach(), var.detach()
-    y, mean, invstd = torch.ops.aten.native_batch_norm(
-        x, weight, bias, None, None, True, 0.0, eps)
-    return y, mean, invstd.detach().pow(-2).sub_(eps)
+    statistics detached and at least float32. The span ``batch_norm`` covers
+    it, and ``batch_norm.backward`` its backward (``utils/trace.py``)."""
+    with trace.span("batch_norm", backward=True):
+        if cross_replica and world()[1] > 1:
+            mean, var, invstd = global_batch_stats(x, eps)
+            shape = (1, -1) + (1,) * (x.dim() - 2)
+            scale = (invstd * weight).view(shape)
+            y = ((x.to(mean.dtype) - mean.view(shape)) * scale + bias.view(shape)).to(x.dtype)
+            mean, var = mean.detach(), var.detach()
+        else:
+            y, mean, invstd = torch.ops.aten.native_batch_norm(
+                x, weight, bias, None, None, True, 0.0, eps)
+            var = invstd.detach().pow(-2).sub_(eps)
+    return y, mean, var
 
 
 class BatchNorm(nn.Module):

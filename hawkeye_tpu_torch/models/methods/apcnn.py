@@ -38,6 +38,7 @@ from torch import nn
 from ...ops.nms import anchor_adjacency, nms_fixed_anchors_batch
 from ...ops.resample import crop_resize_bilinear
 from ...registry import MODEL
+from ...utils import trace
 from ..backbones.norm import BatchNorm
 from ..backbones.resnet import Bottleneck, _conv
 
@@ -213,6 +214,7 @@ class APCNN(nn.Module):
         concat = torch.cat([f.to(dt).mean(dim=(2, 3)) for f in feats], dim=1)
         return out + [self.cls_concate(concat)]
 
+    @trace.spanned("nms")
     def _rois(self, spatial, level, border_frac):
         """Attention mask [B, 1, h, w] -> the level's top-k ROI boxes
         [B, k, 4] in image pixels: scores inside the border, above their
@@ -230,6 +232,7 @@ class APCNN(nn.Module):
                                       self.roi_topk[level])[0]
         return getattr(self, f"anchors{level}")[idx]
 
+    @trace.spanned("roi_crop")
     def _roi_crop(self, c3, rois, draws=None):
         """The union box of the ROIs, floored, cropped out of c3 (NCHW) and
         resized back to c3's size; with ``draws`` (train mode) one ROI of

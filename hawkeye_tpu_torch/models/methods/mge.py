@@ -46,6 +46,7 @@ from torch import nn
 
 from ...ops.resample import crop_resize_bilinear, resize_bilinear
 from ...registry import BACKBONE, MODEL
+from ...utils import trace
 from ..backbones.resnet import ResNet, _conv, stacked_forward
 
 
@@ -143,6 +144,7 @@ class MGECNN(nn.Module):
             raise ValueError("fused_experts stacks ResNet backbones, not "
                              f"{backbone_name!r}")
 
+    @trace.spanned("cam_crop")
     def _cam_crop(self, view, c5, weights):
         return cam_bbox(view, c5, weights, self.box_thred, self.image_size)[0]
 

@@ -40,6 +40,7 @@ from torch import nn
 from ...ops.nms import anchor_adjacency, nms_fixed_anchors_batch
 from ...ops.resample import crop_resize_multibox
 from ...registry import BACKBONE, MODEL
+from ...utils import trace
 from ...utils.tensors import dropout
 from ..backbones.resnet import _conv
 
@@ -152,9 +153,11 @@ class NTSNet(nn.Module):
         """c5's spatial mean in the heads' dtype (the trunk's ``pool``)."""
         return stages["c5"].mean(dim=(1, 2)).to(self.fc.weight.dtype)
 
+    @trace.spanned("nms")
     def _nms(self, scores):
         return nms_fixed_anchors_batch(scores, self.adjacency, self.proposal_num)[0]
 
+    @trace.spanned("roi_crop")
     def _crop(self, x, top_idx):
         """The parts [B, M, s, s, C] of the zero-padded input at the anchors
         ``top_idx`` [B, M]."""

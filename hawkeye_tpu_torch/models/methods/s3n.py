@@ -42,6 +42,7 @@ from torch import nn
 from ...ops.peaks import peak_mask
 from ...ops.resample import grid_sample_bilinear, resize_bilinear
 from ...registry import BACKBONE, MODEL
+from ...utils import trace
 from ..backbones.norm import BatchNorm
 from ..backbones.resnet import _conv
 
@@ -193,6 +194,7 @@ class S3N(nn.Module):
                     (pos == lo[:, None]).reshape(b, g, g))
         return mask, mask
 
+    @trace.spanned("saliency")
     def _saliency_grids(self, c5, p, u):
         """The raw view's c5 (NHWC) -> the zoom and inverse grids stacked
         [2B, S, S, 2]: the CAM, the decided map, its peaks, the saliency
@@ -210,6 +212,7 @@ class S3N(nn.Module):
                                       self.base_ratio, "inv")
         return self._create_grid(torch.cat([sal_zoom, sal_inv]))
 
+    @trace.spanned("warp")
     def _warp(self, x, grids):
         """The image (NHWC) sampled at each grid, in the compute dtype:
         [2B, S, S, 3], zoom views first."""

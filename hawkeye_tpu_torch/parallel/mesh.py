@@ -24,7 +24,10 @@ one process per GPU (``torchrun --nproc_per_node=N``), each on
   gradient in some steps, all of which DDP's reducer refuses or needs
   ``find_unused_parameters`` for; the mean of the per-rank gradients is the
   same either way;
-* ``all_reduce_sum``: metric sums over the ranks.
+* ``all_reduce_sum``: the one all-reduce (a sum) that every collective of
+  a step goes through: the gradient average, BatchNorm's statistics, metric
+  sums; while a profiler records it counts its calls and bytes
+  (``utils/trace.py``: ``collective.calls``, ``collective.bytes``).
 
 Global-batch BatchNorm is ``models/backbones/norm.py``'s ``cross_replica``
 (differentiable all-reduce of the statistics), which the Trainer switches
@@ -38,6 +41,8 @@ import os
 
 import torch
 import torch.distributed as dist
+
+from ..utils import trace
 
 TIMEOUT = datetime.timedelta(minutes=10)
 
@@ -79,7 +84,8 @@ def broadcast_module(module, src=0):
 @torch.no_grad()
 def average_gradients(params):
     """Each gradient replaced by its mean over the ranks, one all-reduce
-    per dtype (the gradients flattened into one buffer)."""
+    per dtype (the gradients flattened into one buffer), under the span
+    ``allreduce.grads``."""
     size = world()[1]
     if size == 1:
         return
@@ -88,16 +94,20 @@ def average_gradients(params):
         if p.grad is not None:
             by_dtype.setdefault((p.grad.dtype, p.grad.device), []).append(p.grad)
     for grads in by_dtype.values():
-        flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]))
-        flat.div_(size)
-        off = 0
-        for g in grads:
-            g.copy_(flat[off:off + g.numel()].view_as(g))
-            off += g.numel()
+        with trace.span("allreduce.grads"):
+            flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]))
+            flat.div_(size)
+            off = 0
+            for g in grads:
+                g.copy_(flat[off:off + g.numel()].view_as(g))
+                off += g.numel()
 
 
 def all_reduce_sum(t):
     """``t`` summed over the ranks (in place; returned)."""
     if world()[1] > 1:
+        if trace.enabled():
+            trace.count("collective.calls")
+            trace.count("collective.bytes", t.numel() * t.element_size())
         dist.all_reduce(t)
     return t

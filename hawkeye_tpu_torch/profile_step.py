@@ -96,13 +96,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # and a float32 FMA kernel, both named gram_signed_sqrt_*)
 _PORTED = {"pool_fwd_kernel": "pool_fwd", "pool_bwd_kernel": "pool_bwd",
            "gram_signed_sqrt": "gram_signed_sqrt"}
-_AUGMENT = "hk::augment"  # the profiler range around the device augmentation
-# model -> {its method: category}: profiler ranges around a model's own steps
-_RANGES = {"ntsnet": {"_nms": "nms", "_crop": "roi_crop"},
-           "apcnn": {"_rois": "nms", "_roi_crop": "roi_crop"},
-           "s3n": {"_saliency_grids": "saliency", "_warp": "warp"},
-           "mge": {"_cam_crop": "cam_crop"},
-           "mge_fused": {"_cam_crop": "cam_crop"}}
+# the program's own spans (utils/trace.py) whose launches make a category:
+# the device augmentation, and the region steps of NTS-Net and AP-CNN (nms,
+# roi_crop), S3N (saliency, warp) and MGE-CNN (cam_crop)
+_SPANS = {"hk::augment": "augmentation", "hk::nms": "nms", "hk::roi_crop": "roi_crop",
+          "hk::saliency": "saliency", "hk::warp": "warp", "hk::cam_crop": "cam_crop"}
 # model -> (category, host ops whose kernels it takes): the high-order heads
 _HEADS = {"cbcnn": ("compact_bilinear", ("aten::bmm", "aten::mm")),
           "mpn": ("covariance_newton_schulz", ("aten::bmm",))}
@@ -160,10 +158,8 @@ def _launch_category(event, head=None) -> str | None:
     """The category that the launching host op, or one above it, sets."""
     names = []
     while event is not None:
-        if event.name == _AUGMENT:
-            return "augmentation"
-        if event.name.startswith("hk::"):
-            return event.name[len("hk::"):]
+        if event.name in _SPANS:
+            return _SPANS[event.name]
         if event.name.startswith("Optimizer.step"):
             return "optimizer"
         names.append(event.name)
@@ -264,28 +260,8 @@ def bench_batches(model, batch, n, seed=0, device="cuda"):
     return out
 
 
-def _ranged(fn, name):
-    """``fn`` inside the profiler range ``name``."""
-    def wrapped(*args, **kwargs):
-        with torch.profiler.record_function(name):
-            return fn(*args, **kwargs)
-
-    return wrapped
-
-
 def profile_batch(model, batch, steps, run_dir):
     trainer = bench_trainer(model, run_dir, batch)
-    if trainer.pipeline == "device":
-        augment = trainer.device_augment
-
-        def annotated(generator, images):
-            with torch.profiler.record_function(_AUGMENT):
-                return augment(generator, images)
-
-        trainer.device_augment = annotated
-    for method, category in _RANGES.get(model, {}).items():
-        setattr(trainer.model, method, _ranged(getattr(trainer.model, method),
-                                               f"hk::{category}"))
     batches = bench_batches(model, batch, steps)
     lr = bench_lr(trainer)
     for b in batches[:3]:

@@ -1,4 +1,5 @@
 from .logging_utils import TqdmHandler, get_logger
+from . import trace
 from .meters import AverageMeter, PerformanceMeter, Timer, accuracy
 from .rng import resolve_device, set_random_seed
 from .tensors import device_constant
@@ -13,4 +14,5 @@ __all__ = [
     "get_logger",
     "resolve_device",
     "set_random_seed",
+    "trace",
 ]

@@ -181,7 +181,9 @@ def test_experiment_profile_traces_steps_3_to_8(tmp_path):
     """``experiment.profile`` (the JAX Trainer's ``jax.profiler`` trace,
     started before step 3 of epoch 0 and stopped before step 8) writes a
     ``torch.profiler`` Chrome trace to ``<log_root>/profile`` and says so in
-    the log; of ten steps, each in a named range, the trace holds 3 to 7."""
+    the log; of ten steps, each in a named range, the trace holds 3 to 7.
+    The port's spans are ``hk::`` ranges in it, and the log's next line is
+    the tracer's summary of the five traced steps."""
     path = _tiny_recipe_path("BCNN_S2.yaml", tmp_path, {
         "experiment": {"profile": True},
         "dataset": {"length": 40, "transformer": {"image_size": 32, "resize_size": 36}},
@@ -202,5 +204,13 @@ def test_experiment_profile_traces_steps_3_to_8(tmp_path):
     assert len(steps) == 10
     assert {f"step{i}" for i in range(3, 8)} <= names
     assert not names & {"step0", "step1", "step2", "step9"}
+    assert {"hk::forward", "hk::backward", "hk::pin", "hk::data.collate"} <= names
     with open(os.path.join(pt.log_root, "report.log")) as f:
-        assert f"profiler trace written to {os.path.dirname(trace)}" in f.read()
+        log = f.read()
+    assert f"profiler trace written to {os.path.dirname(trace)}" in log
+    summary = log.split(f"profiler trace written to {os.path.dirname(trace)}\n")[1]
+    summary = summary.splitlines()[0]
+    assert "spans a step over 5 traced steps: " in summary
+    for span in ("backward", "data.collate", "data.wait", "forward", "pin"):
+        assert f"{span} 1/step, host " in summary  # BCNN on VGG-11: no BatchNorm
+    assert "batch_norm" not in summary and "counters" not in summary
