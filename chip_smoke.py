@@ -23,6 +23,14 @@ exits non-zero:
    is one ``torch.bmm`` with float32 output plus the epilogue, the same
    function; the bf16-output ``bmm`` (which rounds the Gram to bf16 before
    the epilogue) is reported beside it.
+   kernels_batch_norm: the cross-replica BatchNorm's four kernels at the
+   dp4 cell's largest and smallest layers (ResNet-50 at 448x448, 64 a rank:
+   64 x 224 x 224 and 2048 x 14 x 14, channels-last), bf16 and float32,
+   against their plain versions on the card given the same statistics: sums
+   within 1e-5 of the channel's sum of magnitudes (float32 reordering), y
+   and dx within one bf16 ulp (float32: 1e-6 of the largest value); kernel,
+   plain and library (``aten.native_batch_norm`` and
+   its backward, timed only) device times and each pass's bytes bound.
 4. reference: a small BCNN (VGG-16, 64x64, float32, TF32 off) on the card,
    through the kernels, against the same weights on the CPU: logits within
    1e-4 and gradients within 1e-2 of the largest value.
@@ -237,10 +245,13 @@ exits non-zero:
 30. distributed: one Baseline-shaped step at a global batch of 16 on two
     ranks (this script with ``--distributed-worker``, gloo over CUDA tensors
     on the one card: NCCL refuses two ranks on one device) against one
-    process at 16 from the same weights: in float64 (ResNet-18, 64x64, a
-    float64 head, SGD) every update and running statistic within 1e-10;
-    the Baseline recipe's ResNet-50 at 448x448 (bf16, Adam), the agreement
-    printed.
+    process at 16 from the same weights: in float32 with TF32 off
+    (ResNet-18, 64x64, a float32 head, SGD) every running statistic within
+    1e-4 and the loss within 1e-5 of the largest value, every update within
+    1e-2 in norm (the BatchNorm kernels take no float64); the
+    Baseline recipe's ResNet-50 at 448x448 (bf16, Adam), the agreement
+    printed; each rank launches each BatchNorm kernel once a norm layer,
+    the single process none.
 31. mge_fused: MGE-CNN's ``fused_experts`` against its sequential path on
     the card in float64 within 1e-10 (logits, gradients, statistics; the
     boxes identical), then ``mge_cnn_fused_train_images_per_sec`` beside
@@ -250,8 +261,9 @@ exits non-zero:
 
 Then a ``kernels`` JSON line (pool kernels at batch 8; the Gram at batch
 128, where its 134 MB output cannot stay in the 50 MB L2 between replays;
-``launches`` summed over the BCNN stage 2, the new recipes' stages and
-the VGG-16-BN stages),
+the BatchNorm kernels summed over their two bf16 shapes; ``launches``
+summed over the BCNN stage 2, the new recipes' stages, the VGG-16-BN
+stages and rank 0 of the distributed phase),
 the ``nvidia-smi`` name and power-limit line,
 and as the last line ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or without the package beside it, it exits non-zero and prints no
@@ -295,6 +307,20 @@ GRAM_RTOL, GRAM_ATOL = 1e-4, 1e-5
 POOL_FWD_BYTES, POOL_BWD_BYTES, POOL_OPS = 2.75, 3.25, 7 / 4
 # CBCNN in float64 on the card against the CPU, relative to the largest value
 CB_F64_TOL = 1e-8
+# every kernel's launch count at 0; the cross-replica BatchNorm's four launch
+# only in a world of more than one process
+BN_KERNELS = ("batch_norm_stats", "batch_norm_apply", "batch_norm_backward_reduce",
+              "batch_norm_backward_apply")
+ZERO_LAUNCHES = {"pool_fwd": 0, "pool_bwd": 0, "gram_signed_sqrt": 0,
+                 **{k: 0 for k in BN_KERNELS}}
+# the dp4 cell's largest and smallest BatchNorm inputs (ResNet-50 at 448x448,
+# 64 a rank): the stem's 64 x 224 x 224 and layer4's 2048 x 14 x 14, NCHW
+BN_SHAPES = [(64, 64, 224, 224), (64, 2048, 14, 14)]
+# per element of x, each pass: the stats read x; apply reads x and writes y;
+# the backward's reduce reads dy and x, its apply dy and x and writes dx
+BN_ELEMENT_READS_WRITES = {"batch_norm_stats": 1, "batch_norm_apply": 2,
+                           "batch_norm_backward_reduce": 2,
+                           "batch_norm_backward_apply": 3}
 
 
 def emit(phase, **fields):
@@ -484,6 +510,118 @@ def check_kernels(torch):
     return out
 
 
+def bf16_ulps(torch, got, want):
+    """The largest distance of ``got`` from ``want`` in units of the bf16
+    spacing at the larger magnitude of the two (0 where they are equal)."""
+    a, b = got.float(), want.float()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    return float(((a - b).abs() / torch.ldexp(torch.ones_like(a), e - 8)).max())
+
+
+def _bn_case(torch, shape, dtype, gen, eps=1e-5):
+    """The four BatchNorm kernels at one NCHW shape (channels-last) against
+    their plain versions on the same card: sums within float32 reordering
+    (1e-5 of the channel's sum of magnitudes), y and dx within one bf16 ulp
+    (float32: 1e-6 relative) given the same statistics; then kernel, plain
+    and library device times and each pass's bound."""
+    from hawkeye_tpu_torch.ops import batch_norm as bn
+
+    n, c, h, w = shape
+    x = (torch.randn(shape, device="cuda", generator=gen) * 2 + 0.5).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    dy = torch.randn(shape, device="cuda", generator=gen).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    weight = torch.rand(c, device="cuda", generator=gen) + 0.5
+    bias = torch.randn(c, device="cuda", generator=gen)
+    rx, rdy = bn.rows(x), bn.rows(dy)
+    xd, dyd = rx.double(), rdy.double()
+
+    stats = bn.batch_norm_stats(x)
+    want = bn.batch_norm_stats_plain(rx)
+    mag = torch.cat([xd.abs().sum(0), (xd * xd).sum(0), torch.ones(1, device="cuda")])
+    stats_err = float(((stats.double() - want.double()).abs() / mag).max())
+    y, mean, var, invstd = bn.batch_norm_apply(x, stats, weight, bias, eps)
+    y_p, mean_p, var_p, invstd_p = bn.batch_norm_apply_plain(rx, stats, weight, bias, eps)
+    sums, dweight, dbias = bn.batch_norm_backward_reduce(dy, x, mean, invstd)
+    sums_p, _, _ = bn.batch_norm_backward_reduce_plain(rdy, rx, mean, invstd)
+    mag_g = torch.cat([dyd.abs().sum(0), (dyd * (xd - mean.double())).abs().sum(0)
+                       * invstd.double()])
+    sums_err = float(((sums.double() - sums_p.double()).abs() / mag_g).max())
+    count = stats[-1:]
+    dx = bn.batch_norm_backward_apply(dy, x, mean, invstd, weight, sums, count)
+    dx_p = bn.batch_norm_backward_apply_plain(rdy, rx, mean, invstd, weight, sums, count)
+    torch.cuda.synchronize()
+    if dtype == torch.bfloat16:
+        y_err, dx_err, limit = (bf16_ulps(torch, bn.rows(y), y_p),
+                                 bf16_ulps(torch, bn.rows(dx), dx_p), 1.0)
+    else:
+        y_err, dx_err, limit = _rel(bn.rows(y), y_p), _rel(bn.rows(dx), dx_p), 1e-6
+    stat_err = max(_rel(mean, mean_p), _rel(var, var_p), _rel(invstd, invstd_p))
+    copies_ok = torch.equal(dweight, sums[c:]) and torch.equal(dbias, sums[:c])
+    row = {"shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
+           "stats_err": stats_err, "sums_err": sums_err, "mean_var_invstd_err": stat_err,
+           "y_err": y_err, "dx_err": dx_err, "err_unit": "bf16 ulp" if limit == 1.0
+           else "relative to the largest value", "local_grads_equal_sums": copies_ok}
+    if (max(stats_err, sums_err) > 1e-5 or stat_err > 1e-6 or max(y_err, dx_err) > limit
+            or not copies_ok):
+        raise AssertionError(f"batch norm kernels differ from plain: {row}")
+
+    # the library's yardsticks (the port calls neither here): the native
+    # train-mode forward and its backward, on the same channels-last tensors
+    _, save_mean, save_invstd = torch.ops.aten.native_batch_norm(
+        x, weight, bias, None, None, True, 0.0, eps)
+    calls = {
+        "batch_norm_stats": (lambda: bn.batch_norm_stats(x),
+                             lambda: bn.batch_norm_stats_plain(rx)),
+        "batch_norm_apply": (lambda: bn.batch_norm_apply(x, stats, weight, bias, eps),
+                             lambda: bn.batch_norm_apply_plain(rx, stats, weight, bias, eps)),
+        "batch_norm_backward_reduce": (
+            lambda: bn.batch_norm_backward_reduce(dy, x, mean, invstd),
+            lambda: bn.batch_norm_backward_reduce_plain(rdy, rx, mean, invstd)),
+        "batch_norm_backward_apply": (
+            lambda: bn.batch_norm_backward_apply(dy, x, mean, invstd, weight, sums, count),
+            lambda: bn.batch_norm_backward_apply_plain(rdy, rx, mean, invstd, weight, sums,
+                                                       count)),
+    }
+    elem = x.element_size() * x.numel()
+    for name, (kernel, plain) in calls.items():
+        row[name] = {"ms": cuda_ms(torch, kernel), "plain_ms": cuda_ms(torch, plain),
+                     "bytes": BN_ELEMENT_READS_WRITES[name] * elem,
+                     "bound_ms": BN_ELEMENT_READS_WRITES[name] * elem / PEAK_BYTES_S * 1e3}
+        row[name]["share_of_bound"] = row[name]["bound_ms"] / row[name]["ms"]
+    row["library_forward_ms"] = cuda_ms(torch, lambda: torch.ops.aten.native_batch_norm(
+        x, weight, bias, None, None, True, 0.0, eps))
+    row["library_backward_ms"] = cuda_ms(
+        torch, lambda: torch.ops.aten.native_batch_norm_backward(
+            dy, x, weight, None, None, save_mean, save_invstd, True, eps, [True, True, True]))
+    del x, dy, rx, rdy, xd, dyd, y, y_p, dx, dx_p, want, mag, mag_g
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_kernels_batch_norm(torch):
+    """kernels_batch_norm: the cross-replica BatchNorm's four kernels at the
+    dp4 cell's largest and smallest layers (b64), bf16 and float32, against
+    their plain versions; times in bf16 (the trunk's dtype) for the kernel
+    table."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in BN_SHAPES:
+            cases.append(_bn_case(torch, shape, dtype, gen))
+    out = {}
+    for name in BN_KERNELS:
+        ms = sum(r[name]["ms"] for r in cases[:len(BN_SHAPES)])
+        bound_ms = sum(r[name]["bound_ms"] for r in cases[:len(BN_SHAPES)])
+        out[name] = dict(ms=ms, plain_ms=sum(r[name]["plain_ms"] for r in cases[:len(BN_SHAPES)]),
+                         bound_ms=bound_ms, bound_by="bytes", max_abs_err=None,
+                         library_ms=None)
+    emit("kernels_batch_norm", cases=cases, device=torch.cuda.get_device_name(0),
+         nvidia_smi=nvidia_smi_line())
+    return out
+
+
 # ----------------------------------------------------------------------------
 # phase 4: small float32 reference, card against CPU
 # ----------------------------------------------------------------------------
@@ -665,7 +803,7 @@ def run_slice(torch, run_dir):
 
     steps = n_train // B
     forwards = steps + 2 * (-(-n_val // B))  # val_first + end-of-epoch val
-    want = {"pool_fwd": 5 * forwards, "pool_bwd": 5 * steps,
+    want = {**ZERO_LAUNCHES, "pool_fwd": 5 * forwards, "pool_bwd": 5 * steps,
             "gram_signed_sqrt": forwards}
     if s2_launches != want:
         raise AssertionError(f"stage 2 launches {s2_launches}, expected {want}")
@@ -722,7 +860,7 @@ def _train_rate(torch, trainer, model, batch, warmup=3, timed=10):
 
 def run_throughput(torch, trainer, batch=128):
     rate = _train_rate(torch, trainer, "bcnn", batch)
-    if rate["launches_per_step"] != {"pool_fwd": 5, "pool_bwd": 5,
+    if rate["launches_per_step"] != {**ZERO_LAUNCHES, "pool_fwd": 5, "pool_bwd": 5,
                                      "gram_signed_sqrt": 1}:
         raise AssertionError(f"launches per step {rate['launches_per_step']}")
     emit("throughput", bcnn_train_images_per_sec=rate.pop("images_per_sec"),
@@ -1084,9 +1222,6 @@ def _train_stage(torch, trainer_cls, config, run_dir, overrides, want=None,
                          seconds_with_val=seconds)
 
 
-ZERO_LAUNCHES = {"pool_fwd": 0, "pool_bwd": 0, "gram_signed_sqrt": 0}
-
-
 def _tester_matches(torch, trainer, config, run_dir, over, want_top1=None,
                     want_launches=ZERO_LAUNCHES):
     """The Tester on the trainer's best model and val split: its top-1 must
@@ -1182,12 +1317,12 @@ def run_highorder(torch, run_dir, n_train=32):
     total = {"pool_fwd": 0, "pool_bwd": 0, "gram_signed_sqrt": 0}
 
     def counts(vgg_trunks, forwards, steps, grams=0):
-        return {"pool_fwd": 5 * vgg_trunks * forwards,
+        return {**ZERO_LAUNCHES, "pool_fwd": 5 * vgg_trunks * forwards,
                 "pool_bwd": 5 * vgg_trunks * steps,
                 "gram_signed_sqrt": grams}
 
     def per_step(vgg_trunks, grams):
-        return {"pool_fwd": 5.0 * vgg_trunks, "pool_bwd": 5.0 * vgg_trunks,
+        return {**ZERO_LAUNCHES, "pool_fwd": 5.0 * vgg_trunks, "pool_bwd": 5.0 * vgg_trunks,
                 "gram_signed_sqrt": float(grams)}
 
     def add(launches):
@@ -2281,7 +2416,12 @@ N_JPEGS = 64
 DECODE_REPEATS = 3
 DECODE_MEAN_TOL = 12  # tests/test_native_decoder.py: mean |native - PIL|
 VGG_BN_F64_TOL = 1e-8
-DIST_F64_TOL = 1e-10
+# two float32 ranks against one float32 process (TF32 off): the statistics
+# and the loss as the largest error over the largest value; each update as
+# the norm of its error over its norm, since cuDNN's float32 algorithm for
+# 8 rows may differ from its algorithm for 16 (on an H100 the largest
+# element of one update of ResNet-18's layer4 differed by 3.5%)
+DIST_F32_TOL = {"stat": 1e-4, "loss": 1e-5, "update": 1e-2}
 MGE_FUSED_TOL = 1e-10
 MIXUP_TOL = 1e-6
 DIST_WORKER = "--distributed-worker"
@@ -2504,7 +2644,7 @@ def run_slice_vgg_bn(torch, run_dir, s1_want, s2_want):
         raise AssertionError(f"experiment.profile wrote no trace at {trace}")
     # the Tester's one val batch and the logits' forward: 5 pools and a Gram each
     top1 = _tester_matches(torch, tr, "BCNN_S2.yaml", run_dir, s2_over, want_launches={
-        "pool_fwd": 10, "pool_bwd": 0, "gram_signed_sqrt": 2})
+        **ZERO_LAUNCHES, "pool_fwd": 10, "pool_bwd": 0, "gram_signed_sqrt": 2})
     del tr
     torch.cuda.empty_cache()
 
@@ -2513,7 +2653,8 @@ def run_slice_vgg_bn(torch, run_dir, s1_want, s2_want):
                "model": {"num_classes": 200, "backbone": "vgg16", "load": None,
                          "fused_pooling": True, "fast_dgrad": True}}
     forwards = 1 + 2 * 1  # one step, val_first and the epoch's validation
-    dg_want = {"pool_fwd": 5 * forwards, "pool_bwd": 5, "gram_signed_sqrt": forwards}
+    dg_want = {**ZERO_LAUNCHES, "pool_fwd": 5 * forwards, "pool_bwd": 5,
+               "gram_signed_sqrt": forwards}
     tr, dg = _train_stage(torch, BCNNTrainer, "BCNN_S2.yaml", run_dir, dg_over, dg_want)
     if not tr.model.backbone.fast_dgrad:
         raise AssertionError("model.fast_dgrad did not reach the trunk")
@@ -2541,7 +2682,7 @@ def run_throughput_vgg_bn(torch, run_dir):
         del trainer
         torch.cuda.empty_cache()
         prof = profile_batch("bcnn_bn", batch, 5, run_dir)
-        _emit_rate(torch, "bcnn_bn", r, {"pool_fwd": 5.0, "pool_bwd": 5.0,
+        _emit_rate(torch, "bcnn_bn", r, {**ZERO_LAUNCHES, "pool_fwd": 5.0, "pool_bwd": 5.0,
                                          "gram_signed_sqrt": 1.0},
                    phase="throughput_vgg_bn",
                    device_idle_share=prof["device_idle_share"],
@@ -2552,19 +2693,18 @@ def run_throughput_vgg_bn(torch, run_dir):
 
 def _dist_trainer(torch, case, config, device):
     """The port's Trainer for one case of the distributed phase: ``small``
-    a float64 classifier (ResNet-18 at 64x64 and a float64 head on the mean
-    of its ``c5``: the Baseline's ``pool`` is float32), ``full`` the
-    Baseline recipe's ResNet-50 (bf16 trunk, float32 head)."""
+    a float32 classifier (ResNet-18 at 64x64 and a float32 head on the mean
+    of its ``c5``), ``full`` the Baseline recipe's ResNet-50 (bf16 trunk,
+    float32 head)."""
     from hawkeye_tpu_torch import BACKBONE
     from hawkeye_tpu_torch.config import setup_config
     from hawkeye_tpu_torch.engine import Trainer
 
-    class F64Net(torch.nn.Module):
+    class F32Net(torch.nn.Module):
         def __init__(self):
             super().__init__()
-            self.backbone = BACKBONE.get("resnet18")(dtype=torch.float64)
+            self.backbone = BACKBONE.get("resnet18")(dtype=torch.float32)
             self.fc = torch.nn.Linear(self.backbone.out_channels, 200)
-            self.double()
 
         def forward(self, x):
             return {"logits": self.fc(self.backbone(x)["c5"].mean(dim=(1, 2)))}
@@ -2575,19 +2715,26 @@ def _dist_trainer(torch, case, config, device):
 
         def get_model(self, model_config):
             if case == "small":
-                return F64Net()
+                return F32Net()
             return super().get_model(model_config)
 
     return DistTrainer(setup_config(argv=["--config", config]), device=device)
 
 
 def _dist_step(torch, case, spec, rank=0, world=1, device="cuda:0"):
+    from hawkeye_tpu_torch.ops import LAUNCHES, reset_launches
+
+    torch.backends.cudnn.allow_tf32 = case != "small"  # float32 convs in small
     trainer = _dist_trainer(torch, case, spec["config"], device)
     trainer.model.load_state_dict(spec["init"])
     per = spec["batch"]["label"].shape[0] // world
     local = {k: v[rank * per:(rank + 1) * per].numpy() for k, v in spec["batch"].items()}
+    reset_launches()
     m = trainer.train_step_call(trainer.prepare_batch(local, train=True), spec["lr"])
+    torch.cuda.synchronize()
     return {"state": {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()},
+            "launches": dict(LAUNCHES),
+            "norm_layers": sum(hasattr(b, "cross_replica") for b in trainer.model.modules()),
             "metrics": {k: float(v) for k, v in m.items()},
             "world": [trainer.rank, trainer.world_size],
             "cross_replica": all(getattr(b, "cross_replica", True)
@@ -2624,12 +2771,14 @@ def run_distributed(torch, run_dir):
     on two ranks (``chip_smoke.py --distributed-worker``, gloo over CUDA
     tensors on this card, 8 rows each) against one process at 16, from the
     same weights, through the port's Trainer (the gradient average and
-    global-batch BatchNorm): ``small`` in float64 (ResNet-18, 64x64, a
-    float64 head), every parameter's update and every running statistic
-    within 1e-10 of the tensor's largest value; ``full``, the Baseline
-    recipe's ResNet-50 at 448x448 (bf16, Adam), the agreement printed. The
-    two ranks' models must be identical, and their mean loss the single
-    process's (1e-10 in float64)."""
+    global-batch BatchNorm, whose kernels take bf16 and float32):
+    ``small`` in float32 with TF32 off (ResNet-18, 64x64, a float32 head),
+    every running statistic and the mean loss within ``DIST_F32_TOL`` of
+    the largest value, every parameter's update within it in norm;
+    ``full``, the Baseline recipe's ResNet-50 at 448x448 (bf16, Adam), the
+    agreement printed. The two ranks' models must be identical, each rank
+    must launch each BatchNorm kernel once a norm layer and the single
+    process none. Returns rank 0's launches over both cases."""
     import socket
 
     d = os.path.join(run_dir, "distributed")
@@ -2651,8 +2800,6 @@ def run_distributed(torch, run_dir):
         gen = torch.Generator().manual_seed(71)
         batch = {"img": torch.randn((16, size, size, 3), generator=gen),
                  "label": torch.randint(0, 200, (16,), generator=gen)}
-        if case == "small":
-            batch["img"] = batch["img"].double()
         trainer = _dist_trainer(torch, case, config, "cuda:0")
         init = {k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()}
         lr = float(trainer.config.train.optimizer.lr)
@@ -2682,39 +2829,52 @@ def run_distributed(torch, run_dir):
     if any(p.returncode for p in procs):
         raise AssertionError("a distributed rank failed:\n" + "\n".join(logs)[-6000:])
     seconds = time.time() - t0
-    report = {}
+    report, ranks_launches = {}, {}
     for case in ("small", "full"):
         ranks = [torch.load(os.path.join(d, f"{case}_rank{r}.pt"), weights_only=False)
                  for r in range(2)]
+        ranks_launches[case] = ranks[0]["launches"]
         if [g["world"] for g in ranks] != [[0, 2], [1, 2]] or not all(
                 g["cross_replica"] for g in ranks):
             raise AssertionError(f"{case}: ranks {[g['world'] for g in ranks]}")
+        for g in ranks:
+            want = {**ZERO_LAUNCHES, **{k: g["norm_layers"] for k in BN_KERNELS}}
+            if g["launches"] != want or any(ref[case]["launches"].values()):
+                raise AssertionError(f"{case}: launches {g['launches']} (one process: "
+                                     f"{ref[case]['launches']}), expected {want}")
         same = all(torch.equal(v, ranks[1]["state"][k]) for k, v in ranks[0]["state"].items())
-        errs = {}
+        stat, update, update_max = {}, {}, {}
         for k, want in ref[case]["state"].items():
             got = ranks[0]["state"][k]
             if not want.is_floating_point():
                 continue
             if "running" in k:
-                errs[k] = _rel(got.double(), want.double())
+                stat[k] = _rel(got.double(), want.double())
             else:  # the update
                 b = before[case][k].double()
-                errs[k] = _rel(got.double() - b, want.double() - b)
-        worst = max(errs, key=errs.get)
+                du, dw = got.double() - b, want.double() - b
+                update[k] = float((du - dw).norm() / dw.norm().clamp_min(1e-300))
+                update_max[k] = _rel(du, dw)
         loss = sum(g["metrics"]["loss"] for g in ranks) / 2
-        row = {"ranks_identical": same, "update_or_stat_max_rel_err": errs[worst],
-               "worst": worst, "loss_two_ranks": loss,
-               "loss_one_process": ref[case]["metrics"]["loss"],
+        worst_s, worst_u = max(stat, key=stat.get), max(update, key=update.get)
+        row = {"ranks_identical": same, "stat_max_rel_err": stat[worst_s],
+               "stat_worst": worst_s, "update_rel_norm_err": update[worst_u],
+               "update_worst": worst_u, "update_max_rel_err": max(update_max.values()),
+               "loss_two_ranks": loss, "loss_one_process": ref[case]["metrics"]["loss"],
                "loss_rel_err": abs(loss - ref[case]["metrics"]["loss"])
                / abs(ref[case]["metrics"]["loss"])}
         report[case] = row
-        if not same or (case == "small" and max(errs[worst], row["loss_rel_err"])
-                        > DIST_F64_TOL):
+        tol = DIST_F32_TOL
+        if not same or (case == "small" and (
+                row["stat_max_rel_err"] > tol["stat"] or row["loss_rel_err"] > tol["loss"]
+                or row["update_rel_norm_err"] > tol["update"])):
             raise AssertionError(f"distributed {case}: {row}")
     emit("distributed", ranks=2, backend="gloo (CUDA tensors, one card)",
-         global_batch=16, small_model="ResNet-18 64x64 with a float64 head, float64, SGD",
-         full_model="Baseline ResNet-50 448x448 bf16 trunk, the recipe's Adam",
-         workers_seconds=seconds, tolerance_small=DIST_F64_TOL, **report)
+         global_batch=16, small_model="ResNet-18 64x64 with a float32 head, float32, "
+         "TF32 off, SGD", full_model="Baseline ResNet-50 448x448 bf16 trunk, the recipe's Adam",
+         workers_seconds=seconds, tolerance_small=DIST_F32_TOL,
+         launches_rank0={case: ranks_launches[case] for case in ranks_launches}, **report)
+    return {k: sum(ranks_launches[case][k] for case in ranks_launches) for k in ZERO_LAUNCHES}
 
 
 def check_mge_fused(torch, run_dir):
@@ -2835,6 +2995,7 @@ def main():
         raise AssertionError(f"the Gram library has no HGMMA instruction: {sass}")
 
     kernels = check_kernels(torch)
+    kernels.update(check_kernels_batch_norm(torch))
     check_reference(torch)
 
     run_dir = os.path.join(ROOT, "_smoke_run")
@@ -2866,7 +3027,8 @@ def main():
         for k, v in run_slice_vgg_bn(torch, run_dir, s1_launches, s2_launches).items():
             launches[k] += v
         run_throughput_vgg_bn(torch, run_dir)
-        run_distributed(torch, run_dir)
+        for k, v in run_distributed(torch, run_dir).items():
+            launches[k] += v
         check_mge_fused(torch, run_dir)
         check_mixup(torch)
     finally:
@@ -2878,7 +3040,8 @@ def main():
                "pool_bwd": ("hawkeye_tpu_torch/csrc/pool.cu",
                             "hawkeye_tpu/ops/pallas_pool.py:131"),
                "gram_signed_sqrt": ("hawkeye_tpu_torch/csrc/gram.cu",
-                                    "hawkeye_tpu/ops/pallas_bilinear.py:63")}
+                                    "hawkeye_tpu/ops/pallas_bilinear.py:63"),
+               **{k: ("hawkeye_tpu_torch/csrc/batch_norm.cu", None) for k in BN_KERNELS}}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": kernels[name]["max_abs_err"],

@@ -23,14 +23,18 @@ bridge carries ``running_mean``/``running_var`` as flax's
 Global-batch statistics (the JAX package's ``bn_cross_replica_axis`` and
 its multi-device train step, whose BatchNorm sees the whole sharded batch,
 ``hawkeye_tpu/parallel/mesh.py:10-13``): with ``cross_replica`` on and a
-``torch.distributed`` world of more than one process, train mode
-all-reduces each channel's count, sum and sum of squares, with their
-gradient (an all-reduce of the gradient's parts too), and normalises
-with the global mean and the biased variance ``E[x^2] - E[x]^2`` (flax's
-fast variance, as its ``pmean`` of ``[mean, mean of squares]`` gives), then
-folds those into the running statistics with flax's momentum. Not
-``nn.SyncBatchNorm``: that folds the unbiased variance with torch's
-momentum. In a world of one process, or with it off, it is the plain path.
+``torch.distributed`` world of more than one process, train mode is
+``_GlobalBatchNorm``, built on the four passes of ``ops/batch_norm.py``
+(hand-written kernels on the card): each rank's per-channel sum, sum of
+squares and count, all-reduced in place; the normalisation with the global
+mean and the biased variance ``E[x^2] - E[x]^2`` (flax's fast variance, as
+its ``pmean`` of ``[mean, mean of squares]`` gives), folded into the
+running statistics with flax's momentum; backward, each rank's sums of
+``dy`` and ``dy * xhat``, all-reduced in place, then ``dx``. The input is a
+channels-last map or a 2-D ``[M, C]`` tensor (anything else raises); it
+saves ``x`` and no float32 copy of it. Not ``nn.SyncBatchNorm``: that folds
+the unbiased variance with torch's momentum. In a world of one process, or
+with it off, it is the plain path, ``aten.native_batch_norm``.
 ``set_cross_replica(module, on)`` switches every norm layer of a model (the
 Trainer does so when it runs in more than one process).
 
@@ -48,38 +52,42 @@ import numpy as np
 import torch
 from torch import nn
 
+from ...ops import batch_norm as bn
 from ...parallel.mesh import all_reduce_sum, world
 from ...utils import trace
 
 
-class _AllReduceSum(torch.autograd.Function):
-    """A sum over the processes whose gradient is the sum of theirs (the
-    span ``allreduce.bn_stats`` each way)."""
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode normalisation of ``x`` with the statistics of the batches
+    of every process: ``(y, mean, biased var)``, the statistics not
+    differentiable. Two passes and one in-place all-reduce each way (the
+    span ``allreduce.bn_stats`` around each all-reduce); ``dweight`` and
+    ``dbias`` are the rank's own sums, which the gradient average averages
+    over the ranks afterwards."""
 
     @staticmethod
-    def forward(ctx, t):
+    def forward(ctx, x, weight, bias, eps):
+        stats = bn.batch_norm_stats(x)
         with trace.span("allreduce.bn_stats"):
-            return all_reduce_sum(t.clone())
+            all_reduce_sum(stats)
+        y, mean, var, invstd = bn.batch_norm_apply(x, stats, weight, bias, eps)
+        ctx.save_for_backward(x, weight, mean, invstd, stats[-1:])
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, dy, _mean, _var):
+        x, weight, mean, invstd, count = ctx.saved_tensors
+        # dy in x's layout: the trunks' gradients arrive so, and this copies
+        # nothing there (tests/test_torch_batch_norm_xr.py); CrossX's part
+        # norms, read through a spatial mean, get theirs in NCHW
+        dy = dy.contiguous(memory_format=torch.channels_last if dy.dim() == 4
+                           else torch.contiguous_format)
+        sums, dweight, dbias = bn.batch_norm_backward_reduce(dy, x, mean, invstd)
         with trace.span("allreduce.bn_stats"):
-            return all_reduce_sum(g.clone())
-
-
-def global_batch_stats(x, eps):
-    """(mean, biased var, invstd) per channel of NCHW ``x`` over the
-    batches of every process, differentiable: each process's count, sum and
-    sum of squares, in float32 or wider, summed by an all-reduce."""
-    all_reduce = _AllReduceSum.apply
-    c = x.shape[1]
-    xf = x.to(torch.promote_types(x.dtype, torch.float32))
-    dims = [d for d in range(x.dim()) if d != 1]
-    count = torch.full((1,), x.numel() // c, dtype=xf.dtype, device=x.device)
-    stats = all_reduce(torch.cat([xf.sum(dims), (xf * xf).sum(dims), count]))
-    mean = stats[:c] / stats[-1]
-    var = torch.clamp_min(stats[c:2 * c] / stats[-1] - mean * mean, 0.0)
-    return mean, var, torch.rsqrt(var + eps)
+            all_reduce_sum(sums)
+        dx = bn.batch_norm_backward_apply(dy, x, mean, invstd, weight, sums, count)
+        return dx, dweight, dbias, None
 
 
 def batch_norm_train(x, weight, bias, eps, cross_replica=False):
@@ -90,11 +98,7 @@ def batch_norm_train(x, weight, bias, eps, cross_replica=False):
     it, and ``batch_norm.backward`` its backward (``utils/trace.py``)."""
     with trace.span("batch_norm", backward=True):
         if cross_replica and world()[1] > 1:
-            mean, var, invstd = global_batch_stats(x, eps)
-            shape = (1, -1) + (1,) * (x.dim() - 2)
-            scale = (invstd * weight).view(shape)
-            y = ((x.to(mean.dtype) - mean.view(shape)) * scale + bias.view(shape)).to(x.dtype)
-            mean, var = mean.detach(), var.detach()
+            y, mean, var = _GlobalBatchNorm.apply(x, weight, bias, eps)
         else:
             y, mean, invstd = torch.ops.aten.native_batch_norm(
                 x, weight, bias, None, None, True, 0.0, eps)

@@ -81,6 +81,14 @@ class GroupingUnit(nn.Module):
         return out, assign.reshape(b, h, w, k)
 
 
+def _for_norm(y, bn):
+    """A 1x1 conv's output on the [B, C, K, 1] region map, in channels-last
+    memory where ``bn`` takes the cross-replica path, whose kernels take that
+    layout (the conv gives the NCHW one: with W = 1 its input's layout is
+    ambiguous); as it is otherwise."""
+    return y.contiguous(memory_format=torch.channels_last) if bn.cross_replica else y
+
+
 class Bottleneck1x1(nn.Module):
     """A bottleneck whose spatial conv is 1x1, float32, on the [B, C, K, 1]
     region map; ``bn3`` starts at scale 0 (the reference zero-inits the
@@ -104,12 +112,13 @@ class Bottleneck1x1(nn.Module):
         self.bn3.weight.zero_()
 
     def forward(self, x):
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
+        out = F.relu(self.bn1(_for_norm(self.conv1(x), self.bn1)))
+        out = F.relu(self.bn2(_for_norm(self.conv2(out), self.bn2)))
+        out = self.bn3(_for_norm(self.conv3(out), self.bn3))
         identity = x
         if self.downsample:
-            identity = self.downsample_bn(self.downsample_conv(x))
+            identity = self.downsample_bn(_for_norm(self.downsample_conv(x),
+                                                    self.downsample_bn))
         return F.relu(out + identity)
 
 

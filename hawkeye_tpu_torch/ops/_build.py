@@ -28,21 +28,32 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("pool.cu", "gram.cu")
+SOURCES = ("pool.cu", "gram.cu", "batch_norm.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
+_F = ctypes.c_float
 # C signatures of the exported functions: name -> (source, argtypes)
 _SIGNATURES = {
     "hk_pool_fwd": ("pool.cu", [_I, _P, _P, _P, _I, _I, _I, _I, _P]),
     "hk_pool_bwd": ("pool.cu", [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "hk_gram_signed_sqrt": ("gram.cu",
                             [_I, _P, _P, _I, _I, _I, ctypes.c_float, _P]),
+    "hk_batch_norm_stats": ("batch_norm.cu", [_I, _P, _L, _I, _P, _P, _L, _P, _I, _P]),
+    "hk_batch_norm_apply": ("batch_norm.cu",
+                            [_I, _P, _P, _P, _P, _F, _P, _P, _P, _P, _L, _I, _P]),
+    "hk_batch_norm_backward_reduce": (
+        "batch_norm.cu", [_I, _P, _P, _P, _P, _L, _I, _P, _P, _P, _P, _L, _P, _I, _P]),
+    "hk_batch_norm_backward_apply": (
+        "batch_norm.cu", [_I, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P]),
 }
 
-LAUNCHES = {"pool_fwd": 0, "pool_bwd": 0, "gram_signed_sqrt": 0}
+LAUNCHES = {"pool_fwd": 0, "pool_bwd": 0, "gram_signed_sqrt": 0,
+            "batch_norm_stats": 0, "batch_norm_apply": 0,
+            "batch_norm_backward_reduce": 0, "batch_norm_backward_apply": 0}
 BUILD_LOG: dict[str, str] = {}  # source -> nvcc's stderr (-Xptxas -v report)
 
 _lock = threading.Lock()

@@ -30,8 +30,8 @@ one process per GPU (``torchrun --nproc_per_node=N``), each on
   (``utils/trace.py``: ``collective.calls``, ``collective.bytes``).
 
 Global-batch BatchNorm is ``models/backbones/norm.py``'s ``cross_replica``
-(differentiable all-reduce of the statistics), which the Trainer switches
-on in a world of more than one process.
+(an in-place all-reduce of the statistics each way), which the Trainer
+switches on in a world of more than one process.
 """
 
 from __future__ import annotations

@@ -30,9 +30,10 @@ Trainer's ``experiment.profile`` log line):
   ``batch_norm_train``, every train-mode normalisation): the layer's
   forward without the running-statistics fold, and the backward of its
   ops -- ``norm_ms``;
-* ``allreduce.bn_stats`` (``_AllReduceSum``, forward and backward) and
-  ``allreduce.grads`` (``parallel/mesh.py`` ``average_gradients``) --
-  ``bn_allreduce_ms``, ``grad_allreduce_ms``;
+* ``allreduce.bn_stats`` (``norm.py`` ``_GlobalBatchNorm``: the in-place
+  all-reduce of the statistics forward and of the gradient's sums
+  backward) and ``allreduce.grads`` (``parallel/mesh.py``
+  ``average_gradients``) -- ``bn_allreduce_ms``, ``grad_allreduce_ms``;
 * ``nms``, ``roi_crop``, ``saliency``, ``warp``, ``cam_crop`` (NTS-Net,
   AP-CNN, S3N and MGE-CNN's region steps) -- ``profile_step``'s categories
   of those names;

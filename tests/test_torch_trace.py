@@ -14,7 +14,9 @@ CPU at a tiny size (ResNet-18 in float32 at 32x32, synthetic data, batch
   it was open, on any thread (made-up events: the CPU launches nothing);
 * two gloo processes (``torch_trace_worker.py``) count 2 x norm layers + 1
   all-reduces a step, and the bytes that the model's shapes give, with
-  ``allreduce.bn_stats`` inside the norm layers' spans;
+  ``allreduce.bn_stats`` inside the norm layers' spans; on that
+  cross-replica path ``batch_norm.backward`` is the backward node of
+  ``_GlobalBatchNorm``, once a norm layer a step;
 * ``profile_step`` files what NTS-Net's ``_nms`` and ``_crop`` launch under
   the model's own spans, and nothing else under the step's.
 """
@@ -208,15 +210,17 @@ def test_two_ranks_count_their_collectives(tmp_path):
         steps, widths = got["summary"]["steps"], got["bn_widths"]
         assert steps == 2 and got["rows"] == [4, 4] and len(widths) == 20
         # a step: each norm layer's statistics [sum, sum of squares, count]
-        # forward and their gradient backward (float32), then the gradients
-        # in one float32 buffer
-        stats = sum(2 * (2 * c + 1) * 4 for c in widths)
+        # forward and its sums [dy, dy * xhat] backward (float32), then the
+        # gradients in one float32 buffer
+        stats = sum(((2 * c + 1) + 2 * c) * 4 for c in widths)
         assert got["summary"]["counters"] == {
             "collective.calls": steps * (2 * len(widths) + 1),
             "collective.bytes": steps * (stats + 4 * got["params"])}
         calls = {k: v["calls"] for k, v in got["summary"]["spans"].items()}
         assert calls["allreduce.bn_stats"] == 2 * steps * len(widths)
         assert calls["allreduce.grads"] == steps
+        assert calls["batch_norm"] == calls["batch_norm.backward"] == steps * len(widths)
+        assert got["norm_nodes"] == steps * len(widths)
         parents = {tuple(x) for x in got["parents"]}
         assert {p for n, p in parents if n == "allreduce.bn_stats"} == {
             "batch_norm", "batch_norm.backward"}

@@ -7,8 +7,10 @@ Joins a gloo process group at ``tcp://127.0.0.1:PORT``, builds the port's
 Trainer on the CPU (ResNet-18 in float32 at 32x32, synthetic data, a global
 batch of 8 over the ranks), and runs two train steps of its rank's rows
 with a ``torch.profiler`` recording. Writes the tracer's summary, each
-span's parent (``parents``), the model's BatchNorm widths and its
-parameter count to ``OUT/rank<RANK>.json``. Imports no JAX."""
+span's parent (``parents``), the model's BatchNorm widths, its
+parameter count and the count of the cross-replica BatchNorm's backward
+nodes the profiler ran (``norm_nodes``) to ``OUT/rank<RANK>.json``.
+Imports no JAX."""
 
 import datetime
 import json
@@ -83,8 +85,10 @@ def main(rank, world, port, log_dir, out):
                   if isinstance(m, BatchNorm)]
         params = sum(p.numel() for p in trainer.model.parameters())
         with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            node = trace.EVALUATE + "_GlobalBatchNormBackward"
             json.dump({"summary": trace.summary(events), "parents": list(parents(events)),
                        "bn_widths": widths, "params": params,
+                       "norm_nodes": sum(e.name == node for e in events),
                        "rows": [len(b["label"]) for b in batches]}, f)
     finally:
         dist.destroy_process_group()
