@@ -68,6 +68,7 @@ class RunRecord:
     flops_per_image: float
     kernel_work: dict
     chips: int
+    profile: trace.Profile | None  # the traced stretch's profiler
 
 
 class Run:
@@ -207,7 +208,7 @@ def _run_rank(cell, seed, seconds, traced, device, t_start, log_dir, log):
     step_ms = clock.intervals_ms()
     peak = _all_reduce(torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0,
                        dev, dist.ReduceOp.MAX)
-    summary = None
+    summary = prof = None
     if profile is not None:
         _, k, prof = profile
         summary = trace.summarize(prof.prof.events(), k, prof.window_s)
@@ -238,7 +239,9 @@ def _run_rank(cell, seed, seconds, traced, device, t_start, log_dir, log):
     counted = count == steps * cell.global_batch == handed
     info_ref = time.perf_counter() - t_ref
     log(json.dumps({"portbench_reference_s": info_ref, "readings": values,
-                    "program": program["losses"], "reference": ref["losses"]}), flush=True)
+                    "program": program["losses"], "reference": ref["losses"],
+                    "program_lr": run.lr, "reference_lr": ref["rate"],
+                    "reference_leaves_at": ref["leaves_at"]}), flush=True)
 
     if traced:
         first, k, _ = profile
@@ -248,7 +251,7 @@ def _run_rank(cell, seed, seconds, traced, device, t_start, log_dir, log):
                            getattr(run.ref, cell.config["flops"])(
                                int(run.cfg["dataset"]["transformer"]["image_size"]),
                                int(run.cfg["model"]["num_classes"])),
-                           getattr(run.ref, "KERNEL_WORK", {}), cell.chips)
+                           getattr(run.ref, "KERNEL_WORK", {}), cell.chips, prof)
         reported = {}
         for m in catalog.cell_metrics(cell, "per_layer"):
             value = catalog.load_metric(m["name"], cell.root).read(record)

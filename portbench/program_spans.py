@@ -6,9 +6,8 @@ The tracer's spans are ``hk::`` ranges among the traced stretch's profiler
 events, and ``trace.summary`` reads them from there; the tracer records
 counters and ``Trainer.train_step_call`` counts steps while a profiler
 records, which in a run is the traced stretch alone. The record that a
-reader gets does not carry the profiler: the harness's frame that calls the
-readers (``cell._run_rank``) holds the stretch's ``trace.Profile`` in its
-local ``profile``, and the summary of its events is kept on it.
+reader gets carries the stretch's ``trace.Profile`` (``profile``), and the
+summary of its events is kept on it.
 
 Each reading is a total over the stretch divided by its steps, and is None
 where the program has no tracer (an older checkout of the port), where
@@ -19,22 +18,7 @@ never ran; a device reading is None without CUDA as well.
 
 from __future__ import annotations
 
-import sys
-
 import torch
-
-from .trace import Profile
-
-
-def _stretch_profile():
-    """The traced stretch's ``Profile``, from the frames above, or None."""
-    f = sys._getframe(1)
-    while f is not None:
-        p = f.f_locals.get("profile")
-        if isinstance(p, tuple) and p and isinstance(p[-1], Profile):
-            return p[-1] if p[-1].prof is not None else None
-        f = f.f_back
-    return None
 
 
 def _traced(run):
@@ -44,8 +28,8 @@ def _traced(run):
         from hawkeye_tpu_torch.utils import trace
     except ImportError:  # a port without its own tracer
         return None
-    prof = _stretch_profile()
-    if prof is None:
+    prof = getattr(run, "profile", None)
+    if prof is None or prof.prof is None:
         return None
     s = getattr(prof, "program_spans", None)
     if s is None:

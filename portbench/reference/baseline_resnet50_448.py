@@ -102,8 +102,10 @@ def build(run_cfg):
     return Baseline(int(run_cfg["model"]["num_classes"]))
 
 
-def loss_and_backward(model, imgs, labels, precision):
-    """Mean loss over the rows; the gradients accumulate in ``.grad``."""
+def loss_and_backward(model, imgs, labels, precision, generator=None, per_rank=None):
+    """Mean loss over the rows; the gradients accumulate in ``.grad``. The
+    model draws nothing of its own, so ``generator`` and ``per_rank`` go
+    unused."""
     loss = cross_entropy_sum(model(imgs, precision), labels) / imgs.shape[0]
     loss.backward()
     return float(loss.detach())

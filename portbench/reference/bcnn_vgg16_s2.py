@@ -78,8 +78,10 @@ def build(run_cfg):
     return BCNN(int(run_cfg["model"]["num_classes"]))
 
 
-def loss_and_backward(model, imgs, labels, precision):
-    """Mean loss over the rows; the gradients accumulate in ``.grad``."""
+def loss_and_backward(model, imgs, labels, precision, generator=None, per_rank=None):
+    """Mean loss over the rows; the gradients accumulate in ``.grad``. The
+    model draws nothing of its own, so ``generator`` and ``per_rank`` go
+    unused."""
     total = 0.0
     n = imgs.shape[0]
     for r in range(0, n, ROW_BLOCK):

@@ -1,13 +1,22 @@
-"""What both references share: the init, the device augmentation, the
-loss, the optimizers, reduced precision for the control, and the training
-steps that the check follows.
+"""What the references share: the init, the device augmentation, the
+loss, the optimizers and the recipe's rates, reduced precision for the
+control, the model's own draws, and the training steps that the check
+follows.
 
 Plain PyTorch in float32 with TF32 off. Nothing here imports the program:
 where the program's arithmetic is part of what a step computes (the
 LeCun-normal init drawn from the seed, the augmentation's draws from the
-device generator seeded by the step), this file keeps a frozen copy of the
-rule, and computes every step of it in float32 where the program rounds to
-bfloat16.
+device generator seeded by the step, the model's own draws from the
+generator seeded by the step with bit 63 set, the scheduled rate at the
+window's epoch, the recipe's rate multipliers by parameter-name prefix),
+this file keeps a frozen copy of the rule, written from the recipe's
+definition, and computes every step of it in float32 where the program
+rounds to bfloat16.
+
+A reference module gives ``build(run_cfg)`` and ``loss_and_backward(model,
+imgs, labels, precision, generator=None, per_rank=None)``; it may declare
+its recipe's parameter groups (``LR_MULT``, ``LR_MULT_DEFAULT``; see
+``rate_multipliers``).
 
 Augmentation (the recipes' train preset): RandomResizedCrop (scale 0.08-1,
 ratio 3/4-4/3, boxes clamped), horizontal flip 0.5, TrivialAugmentWide
@@ -19,6 +28,7 @@ normalisation, random erasing (p 0.1), in the draw order of the program's
 from __future__ import annotations
 
 import math
+from collections import Counter
 
 import numpy as np
 import torch
@@ -340,13 +350,103 @@ def augmented_batch(pool_images, pool_labels, rows, seed, step, size,
 
 
 # ---------------------------------------------------------------------------
+# the model's own draws (dropout masks, sampled offsets)
+# ---------------------------------------------------------------------------
+def model_generator(seed, step, device):
+    """The generator of the model's own draws at ``step``: seeded
+    ``(seed * 2**32 + step) | 1 << 63`` on every rank, the augmentation's
+    seed with bit 63 set (from a seed of 2**31 up, that bit is set already,
+    and the two streams are one)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed((seed * 2**32 + step) | 1 << 63)
+    return gen
+
+
+def rank_generators(generator, rows, per_rank):
+    """One generator for each rank's slice of ``rows`` global rows, each
+    seeded as ``generator`` was, as each rank's program seeds its own: a
+    module draws slice ``i``'s draws from the ``i``-th, in the order its
+    program draws them."""
+    gens = []
+    for _ in range(0, rows, per_rank):
+        gen = torch.Generator(device=generator.device)
+        gen.manual_seed(generator.initial_seed())
+        gens.append(gen)
+    return gens
+
+
+# ---------------------------------------------------------------------------
+# the recipe's rates: the scheduled rate and the groups' multipliers
+# ---------------------------------------------------------------------------
+def epoch_rate(run_cfg, epoch=0):
+    """The rate at ``epoch`` (every phase of a run is at epoch 0) of the
+    configuration's ``train.scheduler`` from ``train.optimizer.lr``, as the
+    recipes define their schedulers:
+
+    * none, or a name of none and no ``T_max``: constant;
+    * ``CosineAnnealingLR``, or a name of none with a ``T_max`` (recipes
+      that build warm-up and cosine in their Example): torch's ``LinearLR``
+      from ``lr_warmup_decay`` (0.01) x the rate up to it over
+      ``warmup_epochs`` (0), then the cosine from the rate down to
+      ``eta_min`` (0) over ``T_max`` (30) less the warm-up;
+    * ``StepLR``: x ``gamma`` (0.1) every ``step_size`` epochs;
+    * ``MultiStepLR``: x ``gamma`` (0.1) at each of ``milestones``;
+    * ``ReduceLROnPlateau``: the rate; only a validation metric lowers it,
+      and a run validates nothing."""
+    lr = float(run_cfg["train"]["optimizer"]["lr"])
+    sched = run_cfg["train"].get("scheduler") or {}
+    name = sched.get("name")
+    if name in (None, "", "None", "none", "Constant"):
+        if "T_max" not in sched:
+            return lr
+        name = "WarmupCosine"
+    if name in ("CosineAnnealingLR", "WarmupCosine"):
+        warmup = int(sched.get("warmup_epochs", 0))
+        if warmup and epoch < warmup:
+            start = float(sched.get("lr_warmup_decay", 0.01))
+            return lr * (start + (1.0 - start) * (epoch / warmup))
+        t_max = int(sched.get("T_max", 30))
+        eta_min = float(sched.get("eta_min", 0.0))
+        e = min(epoch - warmup, t_max)
+        return eta_min + 0.5 * (lr - eta_min) * (
+            1 + math.cos(math.pi * e / max(t_max - warmup, 1)))
+    gamma = float(sched.get("gamma", 0.1))
+    if name == "StepLR":
+        return lr * gamma ** (epoch // int(sched["step_size"]))
+    if name == "MultiStepLR":
+        return lr * gamma ** sum(1 for m in sched["milestones"] if epoch >= int(m))
+    if name == "ReduceLROnPlateau":
+        return lr
+    raise ValueError(f"unknown scheduler {name!r}")
+
+
+def rate_multipliers(ref, names):
+    """{leaf: rate multiplier} by the reference module's recipe groups.
+
+    ``LR_MULT`` ({dot-joined name prefix: multiplier}, the recipe's values)
+    names the groups: a prefix matches the leaf of that name and those
+    under it (``backbone`` matches ``backbone.x``, not ``backbone2.x``), and
+    the first rule that matches wins; a leaf that none matches gets
+    ``LR_MULT_DEFAULT`` (1.0). A module that declares no groups steps every
+    leaf at 1.0."""
+    rules = getattr(ref, "LR_MULT", {})
+    default = float(getattr(ref, "LR_MULT_DEFAULT", 1.0))
+    return {n: float(next((m for prefix, m in rules.items()
+                           if n == prefix or n.startswith(prefix + ".")), default))
+            for n in names}
+
+
+# ---------------------------------------------------------------------------
 # optimizers: SGD with momentum and Adam, both with coupled L2
 # ---------------------------------------------------------------------------
 class Optimizer:
-    def __init__(self, params, cfg):
+    """Each leaf steps at ``lr`` times its multiplier in ``mult``."""
+
+    def __init__(self, params, cfg, lr, mult):
         self.params = params
         self.name = str(cfg["name"]).lower()
-        self.lr = float(cfg["lr"])
+        self.lr = float(lr)
+        self.mult = mult
         self.wd = float(cfg.get("weight_decay", 0.0))
         self.momentum = float(cfg.get("momentum", 0.0))
         self.betas = (float(cfg.get("beta1", 0.9)), float(cfg.get("beta2", 0.999)))
@@ -359,18 +459,19 @@ class Optimizer:
         self.t += 1
         b1, b2 = self.betas
         for name, p in self.params.items():
+            lr = self.lr * self.mult[name]
             g = p.grad + self.wd * p
             st = self.state.setdefault(name, {})
             if self.name == "sgd":
                 buf = st.get("buf")
                 buf = g.clone() if buf is None else buf.mul_(self.momentum).add_(g)
                 st["buf"] = buf
-                p.sub_(self.lr * buf)
+                p.sub_(lr * buf)
             elif self.name == "adam":
                 m = st.setdefault("m", torch.zeros_like(p)).mul_(b1).add_(g, alpha=1 - b1)
                 v = st.setdefault("v", torch.zeros_like(p)).mul_(b2).addcmul_(g, g, value=1 - b2)
                 denom = (v / (1 - b2 ** self.t)).sqrt_().add_(self.eps)
-                p.sub_(self.lr / (1 - b1 ** self.t) * m / denom)
+                p.sub_(lr / (1 - b1 ** self.t) * m / denom)
             else:
                 raise ValueError(f"unknown optimizer {self.name!r}")
 
@@ -385,9 +486,12 @@ def leaf_norms(tensors):
 def reference_steps(ref, run_cfg, pool_images, pool_labels, batches, seed,
                     per_rank, device, precision="float32", keep_rows=None):
     """Train the reference from its own init through ``batches`` (global
-    index batches, one a step) and read what the check compares: each step's
-    loss, the per-leaf norm of the first step's gradient, and of the
-    parameters' change after the last step.
+    index batches, one a step) as the recipe trains, at its scheduled rate
+    at epoch 0 times each leaf's group multiplier, with the model's own
+    draws from the step's generator, and read what the check compares: each
+    step's loss, the per-leaf norm of the first step's gradient, and of the
+    parameters' change after the last step; also the rate and the number of
+    leaves at each multiplier.
 
     ``keep_rows``: train on the first ``keep_rows`` rows of each global batch
     only, the mean over them (a fault, or one rank without its exchange)."""
@@ -397,7 +501,9 @@ def reference_steps(ref, run_cfg, pool_images, pool_labels, batches, seed,
     model = lecun_init(ref.build(run_cfg), gen).to(device)
     params = dict(model.named_parameters())
     p0 = {k: p.detach().clone() for k, p in params.items()}
-    opt = Optimizer(params, run_cfg["train"]["optimizer"])
+    rate = epoch_rate(run_cfg, 0)
+    mult = rate_multipliers(ref, params)
+    opt = Optimizer(params, run_cfg["train"]["optimizer"], rate, mult)
     size = int(run_cfg["dataset"]["transformer"]["image_size"])
     losses, first = [], None
     for step, rows in enumerate(batches):
@@ -407,10 +513,13 @@ def reference_steps(ref, run_cfg, pool_images, pool_labels, batches, seed,
             imgs, labels = imgs[:keep_rows], labels[:keep_rows]
         for p in params.values():
             p.grad = torch.zeros_like(p)
-        losses.append(ref.loss_and_backward(model, imgs, labels, precision))
+        losses.append(ref.loss_and_backward(
+            model, imgs, labels, precision,
+            generator=model_generator(seed, step, device), per_rank=per_rank))
         if first is None:
             first = leaf_norms({k: p.grad for k, p in params.items()})
         opt.step()
     change = leaf_norms({k: p.detach() - p0[k] for k, p in params.items()})
     del model, params, p0, opt
-    return {"losses": losses, "grad_norms": first, "change_norms": change}
+    return {"losses": losses, "grad_norms": first, "change_norms": change,
+            "rate": rate, "leaves_at": dict(Counter(map(repr, mult.values())))}
